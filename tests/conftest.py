@@ -12,3 +12,8 @@ collect_ignore_glob = ["analysis_fixtures/*"]
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (with its reason) elsewhere")
