@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # from the root of a checkout; one GPU
+    python3 chip_smoke.py                # from the root of a checkout; one GPU
 
 Phases, in order; any failure exits non-zero:
   1. the card (``nvidia-smi`` name and power limit) and the versions;
-  2. build every kernel of the serving path from ``src/repro_torch/**/csrc``
-     (one ``nvcc`` per source, all started together) into ``build/``;
-  3. each kernel against its plain PyTorch version at the decode path's
-     shapes (G = 8 groups, C = 8 rows, D = 4096, F = 14336) and at ragged
-     shapes, with the tolerance printed; times of the kernel, the plain
-     version and (for ``gmm``) ``torch.bmm``, beside the kernel's bound;
+  2. build every kernel source from ``src/repro_torch/**/csrc`` (one
+     ``nvcc`` per source, all started together) into ``build/``;
+  3. each kernel of ``repro_torch.kernels.ALL`` against its plain PyTorch
+     version at the shapes of its ``cases`` (the served shape, a long
+     context at Mixtral's max_seq_len of 32768 for the attention kernels,
+     ragged shapes), with the tolerance printed; at the served and long
+     shapes the times of the kernel (events around the wrapper call, and
+     the profiler's device time alone), the plain version and the library
+     yardstick (if any), beside the bound its inputs give;
   4. serve 6 greedy requests through ``repro_torch.build`` at
      Mixtral-8x7B's published widths (d_model 4096, 32/8 heads of 128,
-     8 experts top-2 of d_ff 14336, vocab 32000). The one cut: 4 layers
-     of 32, so the pinned host tier holds 32 experts (11.3 GB). Cache
-     N = 2, M = 2, lru (4 slots, 1.41 GB of HBM): layers 2-3 are
+     8 experts top-2 of d_ff 14336, vocab 32000), dense KV. The one cut: 4
+     layers of 32, so the pinned host tier holds 32 experts (11.3 GB).
+     Cache N = 2, M = 2, lru (4 slots, 1.41 GB of HBM): layers 2-3 are
      uncached, so both tiers carry traffic. Weights are random, seeded;
   5. the served MoE layer against a dense plain reference on the card,
      for a cached and an uncached layer;
-  6. where a decode step's time goes: ``torch.profiler`` over a few decode
-     steps at 4 slots, device time by kernel and copy against wall time;
-  7. the ``kernels`` line (launch counts from the serve phase alone) and
-     the result line.
+  6. where a dense decode step's time goes (``torch.profiler``);
+  7. serve 7 requests of 40-96 tokens (3 opening with one 64-token
+     prefix) plus one fork on the paged-KV + segment-streamed path (page
+     size 16, 32-token segments, one per tick, prefix retention 8), same
+     model and weights; checks tokens, counters, prefix hits, copy-on-
+     write, the fork child against its parent and the page accounting;
+  8. the attention layer functions on the card: paged decode against
+     dense decode over the same KV in permuted pages, paged segment
+     (kernel) against the dense segment (plain flash scan);
+  9. where a paged decode step's time goes;
+ 10. where a segment-streamed prefill's time goes;
+ 11. the ``kernels`` line (launch counts from the serve phases alone, by
+     phase and summed) and the result line.
 Prints nothing of the result when no GPU is present.
 """
 from __future__ import annotations
@@ -36,12 +48,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-DECODE_SHAPE = (8, 8, 4096, 14336)          # G, C, D, F on the decode path
-RAGGED_SHAPES = [(3, 5, 200, 100), (2, 13, 1000, 1000), (1, 3, 36, 52)]
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                         # dense bf16 tensor-core peak
 LAYERS = 4
 SERVE = dict(requests=6, prompt=(16, 32), new_tokens=16, slots=4)
+# phase 7: the paged-KV + segment-streamed path. Prompts of 40-96 tokens,
+# three of them opening with one 64-token prefix (4 full pages of 16)
+PAGED = dict(page_size=16, segment=32, keep_pages=8, slots=4, prompt=(40, 96),
+             new_tokens=16, prefix=64, requests=7, shared=(0, 4, 5))
 
 
 def card_line() -> str:
@@ -66,66 +80,74 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_inputs(name, shape, gen):
+def device_ms(fn, iters: int = 20):
+    """Device time of one call, from ``torch.profiler``: the kernels and
+    copies the calls ran, without the host time between them (which the
+    event timing of a small launch mostly is). None if the profiler saw
+    no device work."""
     import torch
-    G, C, D, F = shape
-    def rnd(*s, scale=1.0):
-        return (torch.randn(s, generator=gen, device="cuda") * scale).to(
-            torch.bfloat16)
-    if name == "swiglu_gmm":
-        return (rnd(G, C, D), rnd(G, D, F, scale=0.02),
-                rnd(G, D, F, scale=0.02))
-    return (rnd(G, C, F), rnd(G, F, D, scale=0.02))     # the down-projection
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_ms(e) for e in prof.key_averages())
+    return total / iters if total > 0 else None
 
 
-def bound(name, inputs, out):
-    """Least time for the work: each input read once, the output written
-    once, over HBM; the flops over the bf16 peak. Returns (ms, by)."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs) + \
-        out.numel() * out.element_size()
-    G, C, K = inputs[0].shape
-    N = inputs[1].shape[2]
-    flops = 2 * G * C * K * N * (2 if name == "swiglu_gmm" else 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: int, ops: int):
+    """Least time for the work: its bytes over HBM, its operations over
+    the bf16 peak, whichever is longer. Returns (ms, by)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def check_kernels(kernels):
-    """Each kernel vs its plain version; returns {name: measurements}."""
+    """Each kernel against its plain version at every shape of its
+    ``cases`` (``repro_torch.kernels.cases``), timed at the served and
+    long ones. Returns {name: {label: measurements}}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for k in kernels:
         name, wrapper, plain = k["name"], k["wrapper"], k["plain"]
-        for shape in [DECODE_SHAPE] + RAGGED_SHAPES:
-            inputs = kernel_inputs(name, shape, gen)
-            got = wrapper(*inputs)
+        for label, spec in k["cases"]:
+            args = k["inputs"](spec, gen)
+            got = wrapper(*args)
             torch.cuda.synchronize()
-            want = plain(*inputs)
+            want = plain(*args)
             err = (got.float() - want.float()).abs().max().item()
             # same products, other fp32 summation order: one bf16 rounding
-            tol = 2 ** -7 * want.float().abs().max().item() + 1e-3
+            # of the largest output (the tiny floor only for all-zero rows)
+            tol = 2 ** -7 * want.float().abs().max().item() + 1e-5
             ok = bool(torch.isfinite(got.float()).all()) and err <= tol
-            print(f"[kernel] {name} G,C,D,F={shape}: max_abs_err={err:.6g} "
+            print(f"[kernel] {name} {label} {spec}: max_abs_err={err:.6g} "
                   f"tol={tol:.6g} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version "
-                                 f"at {shape}")
-            if shape == DECODE_SHAPE:
-                ms = time_ms(lambda: wrapper(*inputs))
-                plain_ms = time_ms(lambda: plain(*inputs), iters=3)
-                lib_ms = None
-                if name == "gmm":
-                    lib_ms = time_ms(lambda: torch.bmm(*inputs))
-                bound_ms, by = bound(name, inputs, got)
-                results[name] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=by, library_ms=lib_ms)
-                print(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} "
-                      f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms by "
-                      f"{by}: {100 * bound_ms / ms:.1f}% of roofline)")
-            del inputs, got, want
+                                 f"at {spec}")
+            if label in ("served", "long"):
+                ms = time_ms(lambda: wrapper(*args))
+                dev_ms = device_ms(lambda: wrapper(*args))
+                plain_ms = time_ms(lambda: plain(*args), iters=3)
+                lib = k["library"](args) if k["library"] else None
+                lib_ms = time_ms(lib) if lib is not None else None
+                bound_ms, by = bound(*k["work"](args, got))
+                results.setdefault(name, {})[label] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                    device_ms=dev_ms)
+                print(f"[kernel] {name} {label}: {ms:.4f} ms, device "
+                      f"{dev_ms} ms (plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                      f"{bound_ms:.4f} ms by {by}: "
+                      f"{100 * bound_ms / ms:.1f}% of roofline)")
+            del args, got, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -200,10 +222,10 @@ def serve():
         raise SystemExit("accesses do not count every decoded pick")
     if st.hits == 0 or st.fetched_experts == 0:
         raise SystemExit("one of the two tiers carried no traffic")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("swiglu_gmm", "gmm", "flash_decode"):
+        if launches[name] <= 0:
             raise SystemExit(f"kernel {name} was never launched while "
-                             f"serving")
+                             f"serving the dense path")
     return engine, launches, dict(tok_s=total / dt, seconds=dt)
 
 
@@ -256,10 +278,11 @@ def _device_ms(ev) -> float:
     return 0.0
 
 
-def profile_decode(engine, steps: int = 4):
-    """Phase 6: where a decode step's time goes. Four requests decode
-    together (no admission in the window); ``torch.profiler`` sums the
-    device time by kernel and copy, against the window's wall time."""
+def profile_decode(engine, label: str, steps: int = 4):
+    """Phases 6 and 9: where a decode step's time goes. Four requests
+    decode together (no admission in the window); ``torch.profiler`` sums
+    the device time by kernel and copy, against the window's wall time.
+    A fresh scheduler re-initializes the engine's slots (and page pool)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -278,12 +301,20 @@ def profile_decode(engine, steps: int = 4):
             sched.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[profile] {label}: {steps} decode steps at {SERVE['slots']} "
+          f"slots:")
+    _report(prof, wall_ms, steps, label, "step")
+
+
+def _report(prof, wall_ms: float, units: int, label: str, unit: str):
+    """Device time of a profiled window by kind, against its wall time."""
     rows = [(e.key, _device_ms(e), e.count)
             for e in prof.key_averages() if _device_ms(e) > 0]
     busy = sum(ms for _, ms, _ in rows)
     groups = {"host->device copy": ("HtoD",), "device->host copy": ("DtoH",),
               "device copy": ("DtoD",), "grouped expert kernels":
-              ("grouped_kernel",), "gemm (attention, router, logits)":
+              ("grouped_kernel",), "attention kernels": ("flash_kernel",),
+              "gemm (attention, router, logits)":
               ("gemm", "gemv", "nvjet", "xmma", "cutlass")}
     by = {g: 0.0 for g in groups}
     for key, ms, _ in rows:
@@ -292,17 +323,235 @@ def profile_decode(engine, steps: int = 4):
                 by[g] += ms
                 break
     by["other"] = busy - sum(by.values())
-    print(f"[profile] {steps} decode steps at {SERVE['slots']} slots: wall "
-          f"{wall_ms:.3f} ms ({wall_ms / steps:.3f} ms/step), device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms ({wall_ms / units:.3f} "
+          f"ms/{unit}), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall_ms:.4f}")
     for g, ms in by.items():
-        print(f"[profile]   {g}: {ms:.3f} ms ({ms / steps:.3f} ms/step, "
-              f"{100 * ms / wall_ms:.1f}% of wall)")
+        print(f"[profile]   {label} {g}: {ms:.3f} ms ({ms / units:.3f} "
+              f"ms/{unit}, {100 * ms / wall_ms:.1f}% of wall)")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
-        print(f"[profile]   top: {ms:.3f} ms in {n} calls: {key[:90]}")
+        print(f"[profile]   {label} top: {ms:.3f} ms in {n} calls: "
+              f"{key[:90]}")
     if busy <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
+
+
+def profile_segment(engine, segments: int = 2):
+    """Phase 10: where a segment-streamed prefill's time goes. One
+    request's prompt streams ``segments`` 32-token segments through the
+    paged engine (forward with the paged-prefill kernel, KV into the pool,
+    warm) under ``torch.profiler``; the prefill MoE stages each layer's
+    whole expert table on the device for every segment."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    state = engine.init_slots()
+    seg = engine.ecfg.prefill_segment
+    prompt = np.random.default_rng(4).integers(0, engine.cfg.vocab_size,
+                                               segments * seg)
+    ticket = engine.start_prefill(prompt, max_total_tokens=len(prompt) + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, done = engine.advance_prefill_state(ticket, state, segments)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not done:
+        raise SystemExit("segment profile: the stream did not drain")
+    engine.abort_ticket(ticket)
+    moe = engine.params["scan"]["s0"]["moe"]
+    table_gb = sum(moe[n][0].numel() * moe[n][0].element_size()
+                   for n in ("w1", "w3", "w2")) / 1e9
+    print(f"[profile] segment prefill: {segments} segments of {seg} tokens, "
+          f"expert table per layer {table_gb:.3f} GB x "
+          f"{engine.cfg.num_layers} layers staged per segment:")
+    _report(prof, wall_ms, segments, "segment", "segment")
+
+
+def _paged_requests(vocab: int):
+    """(prompt, max_new_tokens) of the paged phase: request 0 is the
+    64-token prefix plus 32 tokens (3 segments, so it outlives requests 1-3
+    by a tick and its pages are live when requests 4 and 5, which open
+    with the same prefix, are admitted); the rest draw 40-96 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    lo, hi = PAGED["prompt"]
+    prefix = rng.integers(0, vocab, PAGED["prefix"])
+    out = []
+    for i in range(PAGED["requests"]):
+        if i == 0:
+            p = np.concatenate([prefix, rng.integers(0, vocab, 32)])
+        elif i in PAGED["shared"]:
+            tail = int(rng.integers(8, hi - PAGED["prefix"] + 1))
+            p = np.concatenate([prefix, rng.integers(0, vocab, tail)])
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(lo, 65)))
+        out.append((p, PAGED["new_tokens"]))
+    return out
+
+
+def serve_paged(params):
+    """Phase 7: the paged-KV + segment-streamed path at Mixtral's widths
+    (the same 4 layers and weights as phase 4: the pinned host tier is
+    shared, not pinned twice). Once the queue is empty, a live, warmed
+    request is forked into a free slot at a length inside a page, so its
+    next append copies on write. The pool is audited once, after the run,
+    so the timed window holds serving alone (the CPU tests audit every
+    tick). Returns (engine, launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch import build, kernels
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
+    ps = PAGED["page_size"]
+    cap = -(-(PAGED["prompt"][1] + PAGED["new_tokens"] + 1) // ps) * ps
+    engine, sched = build(
+        cfg, cache=dict(num_indexes=2, num_ways=2, policy="lru"),
+        serving=dict(max_batch=PAGED["slots"], capacity=cap,
+                     prefill_chunk=8, kv_paged=True, page_size=ps,
+                     prefill_segment=PAGED["segment"],
+                     admit_chunks_per_tick=1,
+                     prefix_keep_pages=PAGED["keep_pages"]),
+        seed=0, params=params, device="cuda")
+    print(f"[paged] kv_paged page_size={ps} capacity={cap} pool="
+          f"{engine.num_pages} pages, prefill_segment={PAGED['segment']} "
+          f"(1 segment/tick), prefix_keep_pages={PAGED['keep_pages']}, "
+          f"{PAGED['slots']} slots")
+    reqs = [sched.submit(p, max_new_tokens=n)
+            for p, n in _paged_requests(cfg.vocab_size)]
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    forked = None
+    t0 = time.perf_counter()
+    while sched.queue or any(s is not None for s in sched.slots):
+        sched.step()
+        if forked is None and not sched.queue and None in sched.slots:
+            live = [r for t, r in enumerate(sched.slots)
+                    if r is not None and sched._tickets[t] is None
+                    and len(r.generated) <= r.max_new_tokens - 2
+                    and (len(r.prompt) + len(r.generated) - 1) % ps]
+            if live:
+                parent = min(live, key=lambda r: r.rid)
+                forked = (parent, sched.fork(parent.rid))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launches()
+    st = sched.stats
+    total = sum(len(r.generated) for r in sched.finished)
+    print(f"[paged] served {st.requests_finished} requests / {total} "
+          f"tokens in {dt:.3f} s ({total / dt:.3f} tok/s wall, {st.steps} "
+          f"decode steps, peak HBM "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    print(f"[paged] segments={st.prefill_segments} prefix_hits="
+          f"{st.prefix_hits} prefix_tokens_skipped="
+          f"{st.prefix_tokens_skipped} cow_forks={st.cow_forks} "
+          f"pages_in_use={st.kv_pages_in_use} retained="
+          f"{st.prefix_pages_retained}; cache hit rate {st.hit_rate:.4f} "
+          f"(hits={st.hits} accesses={st.accesses} fetches="
+          f"{st.fetched_experts}); prefill warming {st.prefill_tokens} "
+          f"tokens, hits={st.prefill_hits} accesses={st.prefill_accesses} "
+          f"fetches={st.prefill_fetched}")
+    print(f"[paged] latency ttft_ms p50={st.ttft_ms_p50:.1f} "
+          f"p99={st.ttft_ms_p99:.1f} tpot_ms p50={st.tpot_ms_p50:.1f} "
+          f"p99={st.tpot_ms_p99:.1f} stall_ms p50={st.stall_ms_p50:.1f} "
+          f"p99={st.stall_ms_p99:.1f}; launches {launches}")
+    # what came out, and the page accounting
+    if st.requests_finished != len(reqs) + 1 or forked is None:
+        raise SystemExit("paged phase: not every request finished, or no "
+                         "fork happened")
+    for r in sched.finished:
+        o = r.output
+        if len(o) != r.max_new_tokens or o.min() < 0 \
+                or o.max() >= cfg.vocab_size:
+            raise SystemExit(f"paged request {r.rid}: bad output "
+                             f"{o.tolist()}")
+    if st.accesses != st.tokens * cfg.moe.top_k * cfg.num_layers:
+        raise SystemExit("paged: accesses do not count every decoded pick")
+    if st.prefix_hits < 2 or st.prefix_tokens_skipped <= 0 \
+            or st.cow_forks < 1:
+        raise SystemExit("paged: no prefix sharing or no copy-on-write")
+    if not np.array_equal(forked[0].output, forked[1].output):
+        raise SystemExit(f"fork child {forked[1].output.tolist()} differs "
+                         f"from its parent {forked[0].output.tolist()}")
+    engine.kv_pool.check_invariants()
+    # every table is freed; the in-use gauge excludes retained pages
+    if st.kv_pages_in_use != 0 \
+            or st.prefix_pages_retained > PAGED["keep_pages"]:
+        raise SystemExit("paged: pages leaked")
+    for name in ("swiglu_gmm", "gmm", "paged_flash_decode",
+                 "paged_flash_prefill"):
+        if launches[name] <= 0:
+            raise SystemExit(f"kernel {name} was never launched while "
+                             f"serving the paged path")
+    return engine, launches
+
+
+def check_attention(engine):
+    """Phase 8: the layer-level attention functions on the card, kernel
+    against kernel over the same KV: ``decode_attention_paged`` (paged
+    flash-decode) against ``decode_attention`` (flash-decode) with the
+    cache laid out in permuted pages, and ``segment_attention_paged``
+    (paged prefill kernel) against the dense ``segment_attention`` (the
+    plain flash scan)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    cfg = engine.cfg
+    p = transformer.layer_params(engine.params["scan"]["s0"]["attn"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ps, S, B = PAGED["page_size"], engine.ecfg.capacity, PAGED["slots"]
+    mp, N = S // ps, B * (S // ps) + 5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    kd = rnd(B, S, cfg.num_kv_heads, cfg.head_dim)
+    vd = rnd(B, S, cfg.num_kv_heads, cfg.head_dim)
+    pages = torch.randperm(N, generator=gen, device="cuda")[:B * mp]
+    pages = pages.reshape(B, mp).to(torch.int32)
+    kp = torch.zeros((N, ps) + kd.shape[2:], dtype=kd.dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    kp[pages.reshape(-1).long()] = kd.reshape((B * mp, ps) + kd.shape[2:])
+    vp[pages.reshape(-1).long()] = vd.reshape((B * mp, ps) + vd.shape[2:])
+
+    def close(what, got, want, rel):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rel * want.float().abs().max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        print(f"[attention] {what}: max_abs_err={err:.6g} tol={tol:.6g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{what} disagrees")
+
+    x = rnd(B, 1, cfg.d_model)
+    pos = torch.tensor([20, 57, 100, S - 2], device="cuda")
+    od, _ = attn.decode_attention(p, x, {"k": kd.clone(), "v": vd.clone()},
+                                  pos, cfg)
+    op, _ = attn.decode_attention_paged(p, x, {"k": kp.clone(),
+                                               "v": vp.clone()},
+                                        pos, pages, cfg)
+    # the two kernels walk the same keys in the same tiles: one bf16
+    # rounding of the attention output, carried through wo
+    close("decode_attention_paged vs decode_attention", op, od, 2 ** -6)
+    C, pos0, plen = PAGED["segment"], 64, 90
+    xs = rnd(1, C, cfg.d_model)
+    positions = pos0 + torch.arange(C, device="cuda")[None]
+    sd, cd = attn.segment_attention(p, xs, {"k": kd[:1].clone(),
+                                            "v": vd[:1].clone()},
+                                    pos0, positions, cfg)
+    sp, cp = attn.segment_attention_paged(
+        p, xs, {"k": kp.clone(), "v": vp.clone()}, pos0, positions,
+        pages[:1], cfg, -1, pos0, plen)
+    # the kernel against the plain flash scan (another summation order)
+    close("segment_attention_paged vs segment_attention (prompt rows)",
+          sp[:, :plen - pos0], sd[:, :plen - pos0], 2 ** -6)
+    row = pages[0, (pos0 + 5) // ps].long()
+    if not torch.equal(cp["k"][row, (pos0 + 5) % ps], cd["k"][0, pos0 + 5]):
+        raise SystemExit("segment_attention_paged wrote other K than the "
+                         "dense segment")
 
 
 def main() -> int:
@@ -331,16 +580,27 @@ def main() -> int:
                 print(f"[build] {src}: {line.strip()}")
     measured = check_kernels(kernels.ALL)
     print(f"[pcie] pinned host->device copy: {h2d_rate_gbps():.2f} GB/s")
-    engine, launches, served = serve()
+    engine, dense_launches, _ = serve()
     check_layer(engine)
-    profile_decode(engine)
+    profile_decode(engine, "dense")
+    paged, paged_launches = serve_paged(engine.params)
+    check_attention(paged)
+    profile_decode(paged, "paged")
+    profile_segment(paged)
     rows = []
     for k in kernels.ALL:
+        name = k["name"]
+        by_phase = {"dense": dense_launches[name],
+                    "paged": paged_launches[name]}
         rows.append(dict(
-            name=k["name"], route="cuda",
+            name=name, route="cuda",
             source=str(Path(k["source"]).relative_to(ROOT)),
-            replaces=k["replaces"], launches=launches[k["name"]],
-            **measured[k["name"]]))
+            replaces=k["replaces"], launches=sum(by_phase.values()),
+            launches_by_phase=by_phase, **measured[name]["served"],
+            long=measured[name].get("long")))
+        if rows[-1]["launches"] <= 0:
+            raise SystemExit(f"kernel {name} was launched in no serve "
+                             f"phase")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` (Hopper) into ``<repo>/build/kernels/``, then
-loaded with ``ctypes``. A library is rebuilt when its source is newer;
-several sources build in parallel, one ``nvcc`` process each. Nothing here
-runs at import time: the first kernel launch builds what it needs.
+loaded with ``ctypes``. Headers shared between sources live in
+``kernels/csrc/`` (on the include path). A library is rebuilt when its
+source or a shared header is newer; several sources build in parallel, one
+``nvcc`` process each. Nothing here runs at import time: the first kernel
+launch builds what it needs.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR)]
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}     # source name -> nvcc/ptxas output
@@ -37,10 +41,13 @@ def build(sources: Sequence[Path]) -> List[Path]:
     """Compile every stale source, all ``nvcc`` processes started together.
     Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    headers = max((h.stat().st_mtime for h in INCLUDE_DIR.glob("*.cuh")),
+                  default=0.0)
     procs = []
     for src in sources:
         out = _target(src)
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        if out.exists() and out.stat().st_mtime >= max(src.stat().st_mtime,
+                                                        headers):
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]

@@ -5,11 +5,12 @@ collaborative path).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
         [--concurrency 4 --requests 8] [--temperature 0.8 --top-p 0.95] \
-        [--device cpu]
+        [--kv-paged --page-size 16 --prefill-segment 32] [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
 weights, requests drawn from ``numpy.random.default_rng(--seed)``). Flags
-of options the port does not run yet are accepted and raise when set.
+of options the port does not run yet (prefetch, the host lane, tracing,
+the generic path's ``--batch``) are accepted and raise when set.
 Prints tokens/s and the paper's cache counters.
 """
 from __future__ import annotations
@@ -25,11 +26,9 @@ from repro_torch.serving import SamplingParams, build
 
 # flags of unported options: (argparse dest, value that means "off")
 UNPORTED_FLAGS = {
-    "prefill_segment": 0, "prefix_keep_pages": 0, "prefetch": False,
-    "prefetch_min_prob": 0.0, "host_compute": False, "host_threads": 8,
-    "host_fuse_small": 4, "prefetch_rank_votes": True,
-    "host_backend": "callback", "kv_paged": False, "page_size": 16,
-    "kv_pages": None, "trace_out": None, "batch": 1,
+    "prefetch": False, "prefetch_min_prob": 0.0, "host_compute": False,
+    "host_threads": 8, "host_fuse_small": 4, "prefetch_rank_votes": True,
+    "host_backend": "callback", "trace_out": None, "batch": 1,
 }
 
 
@@ -54,8 +53,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="cache-warming chunked-prefill chunk "
                          "(0 = bypass prefill, cold cache)")
-    ap.add_argument("--prefill-segment", type=int, default=0)
-    ap.add_argument("--prefix-keep-pages", type=int, default=0)
+    ap.add_argument("--prefill-segment", type=int, default=0,
+                    help="segment-streamed prefill: forward the prompt in "
+                         "segments of this many tokens, one per tick "
+                         "with --admit-chunks-per-tick (0 = one-shot)")
+    ap.add_argument("--prefix-keep-pages", type=int, default=0,
+                    help="paged KV: park up to this many zero-reference "
+                         "prefix pages for later prompts")
     ap.add_argument("--admit-chunks-per-tick", type=int, default=0,
                     help="overlapped admission: warm a newly admitted "
                          "request by at most this many chunks per tick "
@@ -70,9 +74,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     dest="prefetch_rank_votes")
     ap.add_argument("--host-backend", default="callback",
                     choices=["callback", "jax"])
-    ap.add_argument("--kv-paged", action="store_true")
-    ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--kv-pages", type=int, default=None)
+    ap.add_argument("--kv-paged", action="store_true",
+                    help="paged KV pool with prefix sharing")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV tokens per page (with --kv-paged)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="page pool size (default: dense-equivalent "
+                         "slots*capacity/page_size)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH")
     ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
@@ -101,18 +109,29 @@ def main(argv=None) -> None:
     n = args.indexes if args.indexes is not None else cfg.num_layers // 2
     R = args.requests or args.concurrency * 2
     capacity = args.prompt + args.tokens + 1
+    if args.kv_paged:
+        # paged KV slices the per-request capacity into whole pages
+        capacity = -(-capacity // args.page_size) * args.page_size
     print(f"[serve] collaborative engine: {cfg.name} cache=(N={n}, "
           f"M={args.ways}, {args.policy}) slots={args.concurrency} "
           f"requests={R} device={args.device} "
           f"sampling={f'T={temp}' if sample_on else 'greedy'}"
           + (f" overlap_admit({args.admit_chunks_per_tick} chunks/tick)"
-             if args.admit_chunks_per_tick else ""))
+             if args.admit_chunks_per_tick else "")
+          + (f" segmented_prefill({args.prefill_segment} tok/seg)"
+             if args.prefill_segment else "")
+          + (f" kv_paged(page_size={args.page_size})"
+             if args.kv_paged else ""))
     _, sched = build(
         cfg, cache=dict(num_indexes=n, num_ways=args.ways,
                         policy=args.policy),
         serving=dict(max_batch=args.concurrency, capacity=capacity,
                      prefill_chunk=args.prefill_chunk,
-                     admit_chunks_per_tick=args.admit_chunks_per_tick),
+                     prefill_segment=args.prefill_segment,
+                     admit_chunks_per_tick=args.admit_chunks_per_tick,
+                     kv_paged=args.kv_paged, page_size=args.page_size,
+                     kv_pages=args.kv_pages,
+                     prefix_keep_pages=args.prefix_keep_pages),
         seed=args.seed, max_queue=args.max_queue, device=args.device)
     rng = np.random.default_rng(args.seed)
     for r in range(R):
@@ -153,6 +172,16 @@ def main(argv=None) -> None:
               f"{stats.prefill_chunks} chunks, hit rate "
               f"{stats.prefill_hit_rate:.3f} ({stats.prefill_fetched} "
               f"fetches)")
+    if args.prefill_segment:
+        print(f"  segmented prefill: {stats.prefill_segments} segments "
+              f"({args.prefill_segment} tok/seg), "
+              f"{stats.prefix_tokens_skipped} prefix tokens skipped")
+    if args.kv_paged:
+        print(f"  paged KV: page_size={args.page_size} "
+              f"pages_in_use={stats.kv_pages_in_use} "
+              f"prefix_hits={stats.prefix_hits} "
+              f"cow_forks={stats.cow_forks} "
+              f"prefix_pages_retained={stats.prefix_pages_retained}")
     print(f"  latency: ttft_ms p50={stats.ttft_ms_p50:.1f} "
           f"p99={stats.ttft_ms_p99:.1f}, tpot_ms p50={stats.tpot_ms_p50:.2f} "
           f"p99={stats.tpot_ms_p99:.2f}")

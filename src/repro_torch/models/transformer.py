@@ -8,9 +8,10 @@ leaf. The expert tables are the engine's host tier: they live in host
 memory (pinned when the model runs on a GPU); everything else lives on the
 compute device.
 
-Only what serving runs is here: ``backbone`` in prefill mode (with the
-routing trace the cache-warming replay consumes) and ``lm_logits``. The
-decode step is the engine's (:mod:`repro_torch.serving.engine`).
+Only what serving runs is here: ``backbone`` in prefill and segment mode
+(with the routing trace the cache-warming replay consumes) and
+``lm_logits``. The decode step is the engine's
+(:mod:`repro_torch.serving.engine`).
 """
 from __future__ import annotations
 
@@ -115,7 +116,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_state(cfg: ModelConfig, batch: int, capacity: int,
                device=None) -> Params:
-    """Dense decode state: per-layer KV stacked as [L, B, S, Hk, hd]."""
+    """Decode state: per-layer KV stacked as [L, B, S, Hk, hd]. The paged
+    pool is the same state with ``(num_pages, page_size)`` in place of
+    ``(batch, capacity)``: pages take the batch role, as in the
+    reference's ``init_slots``."""
     homogeneous_slot(cfg)
     one = attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
                              cfg.head_dim, device)
@@ -130,33 +134,58 @@ def _embed_inputs(params: Params, tokens: torch.Tensor,
 
 
 def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-             mode: str = "prefill", want_trace: bool = False
+             mode: str = "prefill", want_trace: bool = False,
+             state: Optional[Params] = None,
+             pages: Optional[torch.Tensor] = None,
+             kv_write_min=None, kv_write_max=None
              ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
-    """Prefill forward: embedding + all layers + final norm.
+    """Embedding + all layers + final norm, in prefill or segment mode.
 
-    tokens [B, S]. Returns (hidden [B, S, D], decode state with the
-    prompt's KV and pos = S, trace). With ``want_trace`` the trace holds
-    every layer's routing ``top_i``/``top_w`` [L, B, S, K] and post-ln2
-    hidden ``h2`` [L, B, S, D] under ``trace["scan"]["s0"]``, from the same
-    router weights and h2 that the layer's MoE consults."""
-    if mode != "prefill":
+    Prefill: tokens [B, S]; returns (hidden [B, S, D], decode state with
+    the prompt's KV and pos = S, trace). Each layer projects and ropes
+    q/k/v once; the cache keeps that K/V.
+
+    Segment (the reference's ``mode="segment"``): tokens [B, C] are one
+    prompt segment whose first token sits at ``state["pos"]`` (an int or
+    a 0-d tensor); the per-layer KV of ``state`` (dense [L, B, cap, ...]
+    or, with ``pages`` [B, max_pages], the paged pool [L, N, ps, ...])
+    carries the request's KV so far and takes the segment's own KV IN
+    PLACE (paged: only positions in ``[kv_write_min, kv_write_max)``).
+    Returns (hidden [B, C, D], state with pos + C, trace).
+
+    With ``want_trace`` the trace holds every layer's routing
+    ``top_i``/``top_w`` [L, B, S, K] and post-ln2 hidden ``h2``
+    [L, B, S, D] under ``trace["scan"]["s0"]``, from the same router
+    weights and h2 that the layer's MoE consults."""
+    if mode not in ("prefill", "segment"):
         raise NotImplementedError(f"backbone mode {mode!r} is not ported "
                                   f"(decode runs in the engine)")
     slot = homogeneous_slot(cfg)
     x = _embed_inputs(params, tokens, cfg)
     B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None]
+    pos = int(state["pos"]) if mode == "segment" else 0
+    positions = pos + torch.arange(S, device=x.device)[None]
     K = cfg.moe.top_k
     lp_all = params["scan"]["s0"]
+    kv = state["scan"]["s0"] if mode == "segment" else None
     ks, vs, tis, tws, h2s = [], [], [], [], []
     for layer in range(cfg.num_layers):
         lp = layer_params(lp_all, layer)
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        o = attn.self_attention(lp["attn"], h, positions, cfg, slot.window)
-        q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        _, k = attn._rope_qk(q, k, positions, cfg)
-        ks.append(k)
-        vs.append(v)
+        if mode == "prefill":
+            o, k, v = attn.prefill_attention(lp["attn"], h, positions, cfg,
+                                             slot.window)
+            ks.append(k)
+            vs.append(v)
+        else:
+            st = {"k": kv["k"][layer], "v": kv["v"][layer]}
+            if pages is not None:
+                o, _ = attn.segment_attention_paged(
+                    lp["attn"], h, st, pos, positions, pages, cfg,
+                    slot.window, kv_write_min, kv_write_max)
+            else:
+                o, _ = attn.segment_attention(lp["attn"], h, st, pos,
+                                              positions, cfg, slot.window)
         x = x + o
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
         f = moe_apply(lp["moe"], h2, cfg.moe,
@@ -169,14 +198,19 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             h2s.append(h2)
         x = x + f
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    state = {"scan": {"s0": {"k": torch.stack(ks), "v": torch.stack(vs)}},
-             "pos": torch.tensor(S, dtype=torch.int32)}
+    if mode == "prefill":
+        new_state = {"scan": {"s0": {"k": torch.stack(ks),
+                                     "v": torch.stack(vs)}},
+                     "pos": torch.tensor(S, dtype=torch.int32)}
+    else:
+        new_state = {"scan": state["scan"],
+                     "pos": torch.tensor(pos + S, dtype=torch.int32)}
     trace = None
     if want_trace:
         trace = {"scan": {"s0": {"top_i": torch.stack(tis),
                                  "top_w": torch.stack(tws),
                                  "h2": torch.stack(h2s)}}}
-    return x, state, trace
+    return x, new_state, trace
 
 
 def lm_logits(params: Params, x: torch.Tensor,

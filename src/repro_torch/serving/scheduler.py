@@ -5,10 +5,17 @@ T = ``EngineConfig.max_batch`` concurrent slots share ONE expert cache:
 
   * admission    — a queued request claims a free slot: the prefill
                    forward runs once (first token sampled at once, KV
-                   copied into the slot's rows), then the slot sits in the
-                   PREFILLING phase while its cache-warming replay drains
-                   (all at once, or ``admit_chunks_per_tick`` chunks per
-                   tick between decode steps).
+                   copied into the slot's rows or pages), then the slot
+                   sits in the PREFILLING phase while its cache-warming
+                   replay drains (all at once, or ``admit_chunks_per_tick``
+                   chunks per tick between decode steps). Under
+                   ``prefill_segment`` no forward runs on the admission
+                   tick: each tick streams (at most
+                   ``admit_chunks_per_tick``) prompt segments, and the
+                   first token is sampled on the tick whose segment ends
+                   the prompt. Under ``kv_paged`` a request whose pages the
+                   pool cannot commit holds the FIFO head until
+                   retirements free pages.
   * decode tick  — one padded decode step over the warmed slots, each at
                    its own KV position; next tokens come from the engine's
                    per-slot sampler, each row under its own request's
@@ -18,15 +25,21 @@ T = ``EngineConfig.max_batch`` concurrent slots share ONE expert cache:
                    same tick.
   * cancellation — :meth:`cancel` retires a queued or in-flight request
                    with a terminal ``(rid, -1, done=True)`` event.
-  * backpressure — ``max_queue`` bounds the waiting line.
+  * backpressure — ``max_queue`` bounds the waiting line;
+                   :meth:`pause_admission` / :meth:`resume_admission` hold
+                   and reopen admissions (in-flight slots keep decoding).
+  * fork         — :meth:`fork` clones a live request into a free slot
+                   sharing all its KV pages (paged KV).
 
 Seeds: the scheduler's own CPU ``torch.Generator`` (seeded by ``seed``)
 draws the base seed of every request whose SamplingParams carries none; a
-request's i-th token draws with ``step_seed(base, i)``. Not ported yet:
-``fork`` and pausing admission.
+request's i-th token draws with ``step_seed(base, i)``. With
+``REPRO_DEBUG_INVARIANTS=1`` every tick ends with the page pool's
+invariant audit.
 """
 from __future__ import annotations
 
+import os
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, Iterator, List, Optional, \
@@ -119,10 +132,15 @@ class ContinuousBatchingScheduler:
         self._bases = [0] * self.num_slots
         self.finished: List[Request] = []
         self._submitted = 0
+        self._paused = False
         self._admission_stalls = 0
         self._queue_rejected = 0
         self._pending_events: List[StreamEvent] = []
         self._pending_done: List[Request] = []
+        # audit the page pool's refcounts, free list and prefix index after
+        # every tick (tests set it; the audit walks the whole pool)
+        self._debug_invariants = \
+            os.environ.get("REPRO_DEBUG_INVARIANTS") == "1"
 
     def _split(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
@@ -136,7 +154,8 @@ class ContinuousBatchingScheduler:
                block: bool = True) -> Request:
         """Queue one request, validated against the engine geometry here.
         With ``max_queue`` at capacity, ``block=True`` drives ticks until
-        space frees and ``block=False`` raises :class:`QueueFull`."""
+        space frees and ``block=False`` raises :class:`QueueFull`; with
+        admission paused a full queue raises in both modes."""
         prompt = _one_prompt(prompt)[0]
         plen, cap = prompt.shape[0], self.engine.ecfg.capacity
         if plen < 1:
@@ -151,11 +170,12 @@ class ContinuousBatchingScheduler:
                 f"raise EngineConfig.capacity")
         while self.max_queue is not None \
                 and len(self.queue) >= self.max_queue:
-            if not block:
+            if not block or self._paused:
                 self._queue_rejected += 1
                 raise QueueFull(
-                    f"scheduler queue is at max_queue={self.max_queue}; "
-                    f"retry later or submit(block=True)")
+                    f"scheduler queue is at max_queue={self.max_queue}"
+                    + (" and admission is paused" if self._paused else
+                       "; retry later or submit(block=True)"))
             finished, events = self._tick()
             self._pending_events.extend(events)
             self._pending_done.extend(finished)
@@ -168,6 +188,20 @@ class ContinuousBatchingScheduler:
         self._submitted += 1
         self.queue.append(req)
         return req
+
+    def pause_admission(self) -> None:
+        """Hold new admissions: queued requests wait while in-flight slots
+        decode and PREFILLING slots keep warming; ``stream()``/``run()``
+        drain only the in-flight work."""
+        self._paused = True
+
+    def resume_admission(self) -> None:
+        """Reopen admission from the next tick."""
+        self._paused = False
+
+    @property
+    def admission_paused(self) -> bool:
+        return self._paused
 
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or in-flight request; its slot frees at once.
@@ -198,6 +232,60 @@ class ContinuousBatchingScheduler:
         if req.on_token is not None:
             req.on_token(-1, True)
         return True
+
+    def fork(self, rid: int, max_new_tokens: Optional[int] = None,
+             sampling: Optional[SamplingParams] = None) -> Request:
+        """Fork a live, warmed request into a free slot (paged KV only).
+
+        The child shares ALL the parent's KV pages (nothing is copied now;
+        the partial last page is copied on write when either side next
+        appends) and continues from the parent's pending next token under
+        its own sampling seed chain (``sampling``; the parent's by
+        default) and budget (``max_new_tokens``; the parent's by default).
+        Raises :class:`~repro_torch.serving.kv_pool.PoolExhausted` when the
+        pool cannot commit the child's decode pages."""
+        if not self.engine.ecfg.kv_paged:
+            raise RuntimeError("fork requires EngineConfig.kv_paged")
+        src = next((t for t, r in enumerate(self.slots)
+                    if r is not None and r.rid == rid), None)
+        if src is None or self.slots[src].done:
+            raise ValueError(f"request {rid} is not in a live slot")
+        if self._tickets[src] is not None:
+            raise ValueError(
+                f"request {rid} is still PREFILLING; fork after warmup")
+        dst = next((t for t in range(self.num_slots)
+                    if self.slots[t] is None), None)
+        if dst is None:
+            raise RuntimeError("no free slot to fork into")
+        parent = self.slots[src]
+        new_max = parent.max_new_tokens if max_new_tokens is None \
+            else int(max_new_tokens)
+        plen, cap = parent.prompt.shape[0], self.engine.ecfg.capacity
+        if new_max <= len(parent.generated):
+            raise ValueError(
+                f"max_new_tokens {new_max} <= tokens already generated "
+                f"({len(parent.generated)}): the child would be born done")
+        if plen + new_max > cap:
+            raise ValueError(
+                f"prompt length {plen} + max_new_tokens {new_max} exceeds "
+                f"engine KV capacity {cap}")
+        child = Request(self._rid, parent.prompt, new_max, parent.eos_id,
+                        sampling if sampling is not None else parent.sampling,
+                        parent.stop_sequences,
+                        generated=list(parent.generated))
+        child.t_submit = child.t_admit = child.t_first = child.t_last \
+            = now_ns()
+        child.slot = dst
+        self._rid += 1
+        self._submitted += 1
+        self.state = self.engine.fork_slot(self.state, src, dst,
+                                           plen + new_max)
+        self._next[dst, 0] = self._next[src, 0]
+        sp = child.sampling
+        self._bases[dst] = sp.seed if sp.seed is not None else self._split()
+        self.slots[dst] = child
+        self._tickets[dst] = None
+        return child
 
     # -- slot bookkeeping --------------------------------------------------
     @property
@@ -246,12 +334,16 @@ class ContinuousBatchingScheduler:
             req.on_token(tok, done)
 
     def _admit(self, events: List[StreamEvent]) -> int:
+        if self._paused:
+            return 0
         admitted = 0
         for t in range(self.num_slots):
             if self.slots[t] is None and self.queue:
                 req = self.queue[0]
                 if not self.engine.can_admit(req.prompt,
                                              req.max_new_tokens):
+                    # paged KV backpressure: the FIFO head cannot commit
+                    # its pages yet; skipping ahead would starve it
                     break
                 self.queue.popleft()
                 req.t_admit = now_ns()
@@ -263,6 +355,14 @@ class ContinuousBatchingScheduler:
                 ticket = self.engine.start_prefill(
                     req.prompt,
                     max_total_tokens=req.prompt.shape[0] + req.max_new_tokens)
+                if ticket.logits is None:
+                    # segment stream: no forward ran; the slot goes
+                    # straight into PREFILLING, its pages claimed so a
+                    # cancel mid-stream releases them
+                    self.engine.claim_slot(ticket, t)
+                    self.slots[t] = req
+                    self._tickets[t] = ticket
+                    continue
                 try:
                     first_tok = self.engine.sample_first(
                         ticket, sp, seed=step_seed(base, 0))
@@ -276,10 +376,12 @@ class ContinuousBatchingScheduler:
                 self._append(req, first_tok, events)
         return admitted
 
-    def _advance_prefills(self) -> None:
-        """Drive every PREFILLING slot's warming replay: all of it when
-        ``admit_chunks_per_tick == 0``, at most that many chunks
-        otherwise. A drained ticket's slot decodes on this tick."""
+    def _advance_prefills(self, events: List[StreamEvent]) -> None:
+        """Drive every PREFILLING slot's warming replay or segment stream:
+        all of it when ``admit_chunks_per_tick == 0``, at most that many
+        chunks otherwise. A drained ticket's slot decodes on this tick; a
+        drained segment stream first owes its request the first token,
+        sampled, bound and streamed here."""
         per_tick = self.engine.ecfg.admit_chunks_per_tick
         for t, ticket in enumerate(self._tickets):
             if ticket is None or self.slots[t] is None:
@@ -290,6 +392,14 @@ class ContinuousBatchingScheduler:
                 ticket, self.state, budget)
             if done:
                 self._tickets[t] = None
+                if ticket.seg > 0:
+                    req = self.slots[t]
+                    first_tok = self.engine.sample_first(
+                        ticket, req.sampling,
+                        seed=step_seed(self._bases[t], 0))
+                    self.state = self.engine.bind_slot(self.state, ticket, t)
+                    self._next[t, 0] = first_tok
+                    self._append(req, first_tok, events)
 
     # -- the decode loop ---------------------------------------------------
     def _tick(self) -> Tuple[List[Request], List[StreamEvent]]:
@@ -309,7 +419,10 @@ class ContinuousBatchingScheduler:
         finished += self._retire()
         if self.queue:
             self._admission_stalls += 1
-        self._advance_prefills()
+        self._advance_prefills(events)
+        # a deferred first token may have finished a one-token request:
+        # retire it before the decode step
+        finished += self._retire()
         t_adm1 = now_ns()
         if admitted or warming:
             self._h_stall.observe((t_adm1 - t_adm0) / 1e6)
@@ -337,6 +450,8 @@ class ContinuousBatchingScheduler:
         self.obs.complete("sched", "tick", t0, now_ns(),
                           {"admitted": admitted, "warming": warming,
                            "decoded": decoded, "queued": len(self.queue)})
+        if self._debug_invariants and self.engine.kv_pool is not None:
+            self.engine.kv_pool.check_invariants()
         return finished, events
 
     def step(self) -> List[Request]:
@@ -346,8 +461,9 @@ class ContinuousBatchingScheduler:
 
     def stream(self) -> Iterator[StreamEvent]:
         """Drain queue + slots, yielding ``(rid, token, done)`` as each
-        token is decoded."""
-        while self.queue or self._pending_events \
+        token is decoded. While admission is paused only the in-flight work
+        drains."""
+        while (self.queue and not self._paused) or self._pending_events \
                 or any(s is not None for s in self.slots):
             _, events = self._tick()
             for ev in events:

@@ -30,7 +30,10 @@ def _port_sources():
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in _port_sources()}
     for must in ("kernels/moe_gmm/ops.py", "core/collaborative.py",
-                 "serving/engine.py", "launch/serve.py"):
+                 "serving/engine.py", "launch/serve.py",
+                 "kernels/decode_attention/ops.py",
+                 "kernels/prefill_attention/ops.py", "kernels/cases.py",
+                 "serving/kv_pool.py"):
         assert must in names
 
 
@@ -44,7 +47,8 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.kernels, repro_torch.bridge\n"
+            "repro_torch.kernels, repro_torch.bridge, "
+            "repro_torch.serving.kv_pool\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -53,3 +57,10 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    path = SRC.parent / "chip_smoke.py"
+    bad = [(line, root) for line, root in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"chip_smoke.py imports {bad}"

@@ -178,3 +178,22 @@ def test_backbone_prefill_logits_kv_trace_match(prefill):
     np.testing.assert_allclose(np.sort(_f32(ttr["top_w"]), -1),
                                np.sort(_f32(jtr["top_w"]), -1), atol=2e-2)
     np.testing.assert_allclose(_f32(ttr["h2"]), _f32(jtr["h2"]), **drift)
+
+
+def test_prefill_kv_is_the_layers_own_projection(model):
+    """The prefill backbone projects and ropes q/k/v once per layer and
+    keeps that K/V: bitwise a separate projection + rope of the layer's
+    normed input."""
+    _, _, tcfg, tparams = model
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tcfg.vocab_size, (1, 12)))
+    _, state, _ = ttf.backbone(tparams, tokens, tcfg, "prefill")
+    lp = ttf.layer_params(tparams["scan"]["s0"], 0)
+    h = tlayers.rmsnorm(lp["ln1"], ttf._embed_inputs(tparams, tokens, tcfg),
+                        tcfg.norm_eps)
+    q, k, v = tattn._project_qkv(lp["attn"], h, tcfg)
+    _, k = tattn._rope_qk(q, k, torch.arange(12)[None], tcfg)
+    torch.testing.assert_close(state["scan"]["s0"]["k"][0], k, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(state["scan"]["s0"]["v"][0], v, rtol=0,
+                               atol=0)

@@ -272,8 +272,8 @@ def test_unported_engine_options_raise(name):
 
 
 @pytest.mark.parametrize("flag", ["--prefetch", "--host-compute",
-                                  "--kv-paged", "--prefill-segment=8",
-                                  "--trace-out=t.json"])
+                                  "--prefetch-min-prob=0.5",
+                                  "--host-threads=4", "--trace-out=t.json"])
 def test_unported_serve_flags_raise(flag, capsys):
     with pytest.raises(SystemExit):
         serve_cli.parse_args([flag])
