@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero:
      ``nvcc`` per source, all started together) into ``build/``;
   3. each kernel of ``repro_torch.kernels.ALL`` against its plain PyTorch
      version at the shapes of its ``cases`` (the served shape, a long
-     context at Mixtral's max_seq_len of 32768 for the attention kernels,
-     ragged shapes), with the tolerance printed; at the served and long
-     shapes the times of the kernel (events around the wrapper call, and
-     the profiler's device time alone), the plain version and the library
-     yardstick (if any), beside the bound its inputs give;
+     context at Mixtral's max_seq_len of 32768 for the attention kernels
+     and of 65536 tokens for the SSD scan, ragged shapes), with the
+     tolerance printed; at the served and long shapes the times of the
+     kernel (events around the wrapper call, and the profiler's device
+     time alone), the plain version and the library yardstick (if any),
+     beside the bound its inputs give;
   4. serve 6 greedy requests through ``repro_torch.build`` at
      Mixtral-8x7B's published widths (d_model 4096, 32/8 heads of 128,
      8 experts top-2 of d_ff 14336, vocab 32000), dense KV. The one cut: 4
@@ -33,7 +34,16 @@ Phases, in order; any failure exits non-zero:
      (kernel) against the dense segment (plain flash scan);
   9. where a paged decode step's time goes;
  10. where a segment-streamed prefill's time goes;
- 11. the ``kernels`` line (launch counts from the serve phases alone, by
+ 11. serve mamba2-370m on the generic path (``repro_torch.models.prefill``
+     and ``decode_step``, greedy) at its published widths and all 48
+     layers, seeded random weights: 4 prompts of 2048 tokens with 64
+     generated tokens, then 1 prompt of 1000 (a ragged chunk) with 16;
+     every prefill runs the ``ssd_scan`` kernel once per layer;
+ 12. one Mamba layer on the card: through the kernel against through the
+     plain scan; prefill of S+1 tokens against prefill of S and a decode
+     step, for the layer and for the 48-layer model;
+ 13. where a Mamba prefill's and a decode step's time goes;
+ 14. the ``kernels`` line (launch counts from the serve phases alone, by
      phase and summed) and the result line.
 Prints nothing of the result when no GPU is present.
 """
@@ -56,6 +66,9 @@ SERVE = dict(requests=6, prompt=(16, 32), new_tokens=16, slots=4)
 # three of them opening with one 64-token prefix (4 full pages of 16)
 PAGED = dict(page_size=16, segment=32, keep_pages=8, slots=4, prompt=(40, 96),
              new_tokens=16, prefix=64, requests=7, shared=(0, 4, 5))
+# phase 11: mamba2-370m's generic path, (batch, prompt, generated tokens):
+# the served batch, and one prompt with a 232-token ragged chunk
+MAMBA = dict(batches=((4, 2048, 64), (1, 1000, 16)))
 
 
 def card_line() -> str:
@@ -106,6 +119,23 @@ def bound(nbytes: int, ops: int):
                                        else "operations")
 
 
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _compare(got, want):
+    """(max abs error, tolerance) of a kernel output against its plain
+    version. Both form the same products and sum in another fp32 order:
+    a bf16 output within one bf16 rounding of its largest value, 2^-7
+    max|want|; an fp32 output (never rounded: the SSD state) within 2^-13
+    max|want|, sums of up to a chunk times d_state terms reordered. The
+    tiny floor only for all-zero outputs."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    rel = 2 ** -7 if got.dtype == torch.bfloat16 else 2 ** -13
+    return err, rel * want.float().abs().max().item() + 1e-5
+
+
 def check_kernels(kernels):
     """Each kernel against its plain version at every shape of its
     ``cases`` (``repro_torch.kernels.cases``), timed at the served and
@@ -120,16 +150,17 @@ def check_kernels(kernels):
             got = wrapper(*args)
             torch.cuda.synchronize()
             want = plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            # same products, other fp32 summation order: one bf16 rounding
-            # of the largest output (the tiny floor only for all-zero rows)
-            tol = 2 ** -7 * want.float().abs().max().item() + 1e-5
-            ok = bool(torch.isfinite(got.float()).all()) and err <= tol
-            print(f"[kernel] {name} {label} {spec}: max_abs_err={err:.6g} "
-                  f"tol={tol:.6g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version "
-                                 f"at {spec}")
+            err = 0.0
+            for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+                e, tol = _compare(g, w)
+                ok = bool(torch.isfinite(g.float()).all()) and e <= tol
+                print(f"[kernel] {name} {label} {spec} output {i} "
+                      f"({str(g.dtype)[6:]}): max_abs_err={e:.6g} "
+                      f"tol={tol:.6g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{name} disagrees with its plain "
+                                     f"version at {spec}")
+                err = max(err, e)
             if label in ("served", "long"):
                 ms = time_ms(lambda: wrapper(*args))
                 dev_ms = device_ms(lambda: wrapper(*args))
@@ -314,7 +345,8 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
     groups = {"host->device copy": ("HtoD",), "device->host copy": ("DtoH",),
               "device copy": ("DtoD",), "grouped expert kernels":
               ("grouped_kernel",), "attention kernels": ("flash_kernel",),
-              "gemm (attention, router, logits)":
+              "ssd scan kernel": ("ssd_kernel",),
+              "gemm (projections, router, logits)":
               ("gemm", "gemv", "nvjet", "xmma", "cutlass")}
     by = {g: 0.0 for g in groups}
     for key, ms, _ in rows:
@@ -554,6 +586,196 @@ def check_attention(engine):
                          "dense segment")
 
 
+def serve_mamba():
+    """Phase 11: the generic serve path (``repro_torch.models.prefill`` and
+    ``decode_step``, greedy) at mamba2-370m's published widths and all 48
+    layers, seeded random weights. Each batch: one prefill through the
+    ``ssd_scan`` kernel (one launch per layer), then greedy decode steps
+    through the recurrence. Returns (params, cfg, launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, models
+    from repro_torch.config import get_config
+
+    cfg = get_config("mamba2-370m")
+    s = cfg.ssm
+    print(f"[mamba] {cfg.name} at published widths and depth: "
+          f"layers={cfg.num_layers} d_model={cfg.d_model} d_inner="
+          f"{s.d_inner(cfg.d_model)} heads={s.num_heads(cfg.d_model)}x"
+          f"{s.head_dim} d_state={s.d_state} chunk={s.chunk_size} "
+          f"vocab={cfg.vocab_size} (tied)")
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size()
+             for t in _leaves(params)) / 1e9
+    print(f"[mamba] weights {gb:.3f} GB on the card, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the first calls pay cuBLAS's and the allocator's set-up
+    warm = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+    _, st = models.prefill(params, {"tokens": warm}, cfg)
+    models.decode_step(params, st, {"tokens": warm[:, :1]}, cfg)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(5)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for B, S, n in MAMBA["batches"]:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = models.prefill(params, {"tokens": prompt}, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        finite = torch.isfinite(logits).all()
+        outs = [tok]
+        t0 = time.perf_counter()
+        for _ in range(n - 1):
+            logits, state = models.decode_step(params, state,
+                                               {"tokens": tok}, cfg)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, 0].argmax(-1)[:, None]
+            outs.append(tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+        out = torch.cat(outs, dim=1).cpu()
+        print(f"[mamba] batch {B} x prompt {S}: prefill {prefill_ms:.3f} ms "
+              f"({B * S / prefill_ms * 1e3:.1f} prompt tok/s), decode "
+              f"{step_ms:.3f} ms/step ({B / step_ms * 1e3:.3f} tok/s), "
+              f"{n} tokens a row; first row {out[0, :8].tolist()}")
+        if tuple(out.shape) != (B, n) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size or not bool(finite):
+            raise SystemExit(f"mamba batch {B}x{S}: tokens outside the "
+                             f"vocab or non-finite logits")
+        if int(state["pos"]) != S + n - 1:
+            raise SystemExit("mamba: the state's position is wrong")
+    launches = kernels.launches()
+    print(f"[mamba] peak HBM {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB; launches {launches}")
+    want = cfg.num_layers * len(MAMBA["batches"])
+    if launches["ssd_scan"] != want:
+        raise SystemExit(f"ssd_scan launched {launches['ssd_scan']} times, "
+                         f"not once per layer and prefill ({want})")
+    return params, cfg, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _close(what, got, want, rel):
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    tol = rel * want.float().abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+    print(f"[check] {what}: max_abs_err={err:.6g} tol={tol:.6g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{what} disagrees")
+
+
+def check_mamba(params, cfg):
+    """Phase 12: one Mamba layer on the card, at the served shape: the
+    layer through the kernel against the same layer through the plain scan
+    (``ssd_scan_plain``), and prefill of S+1 tokens against prefill of S
+    tokens and one decode step (the kernel's final state and the conv
+    state against the recurrence), for the layer and for the whole model."""
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models import ssm, transformer
+    lp = transformer.layer_params(params["scan"]["s0"]["mamba"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, S, _ = MAMBA["batches"][0]
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    before = ssd_scan.launches
+    out_k, st_k = ssm.mamba_apply(lp, x, cfg, ssm.init_ssm_state(cfg, B,
+                                                                 "cuda"))
+    if ssd_scan.launches != before + 1:
+        raise SystemExit("the layer did not run the ssd_scan kernel")
+    ssm.ssd_scan = ssd_scan_plain            # the same layer, plain scan
+    out_p, st_p = ssm.mamba_apply(lp, x, cfg, ssm.init_ssm_state(cfg, B,
+                                                                 "cuda"))
+    ssm.ssd_scan = ssd_scan
+    # y differs by one bf16 rounding, carried through the gated RMSNorm
+    # and out_proj; the fp32 state by reordered sums
+    _close("mamba_apply prefill: kernel vs plain scan (output)", out_k,
+           out_p, 2 ** -6)
+    _close("mamba_apply prefill: kernel vs plain scan (ssd state)",
+           st_k["ssd"], st_p["ssd"], 2 ** -13)
+    if not torch.equal(st_k["conv"], st_p["conv"]):
+        raise SystemExit("the conv state depends on the scan")
+    S1 = MAMBA["batches"][1][1]               # 1000 + 1: a ragged chunk
+    xs = x[:1, :S1 + 1]
+    full, _ = ssm.mamba_apply(lp, xs, cfg, ssm.init_ssm_state(cfg, 1, "cuda"))
+    _, st = ssm.mamba_apply(lp, xs[:, :-1], cfg,
+                            ssm.init_ssm_state(cfg, 1, "cuda"))
+    step, _ = ssm.mamba_apply(lp, xs[:, -1:], cfg, st, decode=True)
+    # the recurrence against the chunked scan: y within a bf16 rounding,
+    # and the projections' GEMMs of 1 and S+1 rows sum in other orders
+    _close("mamba_apply: prefill S then decode vs prefill S+1 (last token)",
+           step[:, 0], full[:, -1], 2 ** -6)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, S1 + 1)), device="cuda")
+    full_logits, _ = models.prefill(params, {"tokens": toks}, cfg)
+    _, st = models.prefill(params, {"tokens": toks[:, :-1]}, cfg)
+    step_logits, _ = models.decode_step(params, st, {"tokens": toks[:, -1:]},
+                                        cfg)
+    # 48 layers, each adding to the residual stream an output within about
+    # two bf16 roundings: 2^-4 of the largest logit
+    _close(f"model: prefill {S1} then decode vs prefill {S1 + 1} (logits, "
+           f"{cfg.num_layers} layers)", step_logits[:, 0], full_logits[:, 0],
+           2 ** -4)
+    same = int(step_logits[0, 0].argmax()) == int(full_logits[0, 0].argmax())
+    print(f"[check] model: the greedy token agrees: {same}")
+
+
+def profile_mamba(params, cfg, steps: int = 4):
+    """Phase 13: where a Mamba prefill's (served batch) and a decode
+    step's time goes (``torch.profiler``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import models
+    B, S, _ = MAMBA["batches"][0]
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = models.prefill(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[profile] mamba prefill: batch {B} x {S} tokens, "
+          f"{cfg.num_layers} layers:")
+    _report(prof, wall_ms, 1, "mamba prefill", "prefill")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, state = models.decode_step(params, state,
+                                               {"tokens": tok}, cfg)
+            tok = logits[:, 0].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[profile] mamba decode: {steps} steps at batch {B}:")
+    _report(prof, wall_ms, steps, "mamba decode", "step")
+    launches = sum(e.count for e in prof.key_averages()
+                   if _device_ms(e) > 0)
+    print(f"[profile] mamba decode: {launches / steps:.0f} device "
+          f"operations a step")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -587,11 +809,17 @@ def main() -> int:
     check_attention(paged)
     profile_decode(paged, "paged")
     profile_segment(paged)
+    del engine, paged
+    torch.cuda.empty_cache()
+    params, cfg, ssm_launches = serve_mamba()
+    check_mamba(params, cfg)
+    profile_mamba(params, cfg)
     rows = []
     for k in kernels.ALL:
         name = k["name"]
         by_phase = {"dense": dense_launches[name],
-                    "paged": paged_launches[name]}
+                    "paged": paged_launches[name],
+                    "ssm": ssm_launches[name]}
         rows.append(dict(
             name=name, route="cuda",
             source=str(Path(k["source"]).relative_to(ROOT)),

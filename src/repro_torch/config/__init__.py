@@ -1,5 +1,5 @@
-from .base import CacheConfig, ModelConfig, MoEConfig, reduced
+from .base import CacheConfig, ModelConfig, MoEConfig, SSMConfig, reduced
 from .registry import get_config, register
 
-__all__ = ["CacheConfig", "ModelConfig", "MoEConfig", "reduced",
+__all__ = ["CacheConfig", "ModelConfig", "MoEConfig", "SSMConfig", "reduced",
            "get_config", "register"]

@@ -1,9 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of the reference configuration types, cut to what the
-collaborative MoE serving path reads. Field names, defaults and
-:func:`reduced` follow the JAX package's ``config/base.py`` exactly, so a
-config built on either side describes the same model.
+collaborative MoE serving path and the generic Mamba2 path read. Field
+names, defaults and :func:`reduced` follow the JAX package's
+``config/base.py`` exactly, so a config built on either side describes the
+same model.
 """
 from __future__ import annotations
 
@@ -29,6 +30,23 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Architecture config. One instance per ``--arch`` id."""
 
@@ -42,6 +60,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0       # 0 -> d_model // num_heads
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     layer_pattern: Tuple[LayerKind, ...] = ("attn",)
     moe_every: int = 1
     moe_offset: int = 0
@@ -110,6 +129,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         changes["moe"] = dataclasses.replace(
             cfg.moe, num_experts=min(cfg.moe.num_experts, 8),
             top_k=min(cfg.moe.top_k, 2), d_ff=128)
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=32, head_dim=32, chunk_size=64)
     if cfg.window_pattern:
         changes["window_pattern"] = tuple(64 if w > 0 else -1
                                           for w in cfg.window_pattern)

@@ -9,7 +9,8 @@ from .base import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 # Modules under repro_torch.configs that register an architecture.
-_CONFIG_MODULES = ["mixtral_8x7b"]
+_CONFIG_MODULES = ["mixtral_8x7b", "mamba2_370m", "smollm_360m",
+                   "jamba_v0_1_52b"]
 
 
 def register(name: str):

@@ -9,6 +9,7 @@ from . import cases
 from .decode_attention import ops as _dec_ops
 from .moe_gmm import ops as _moe_ops
 from .prefill_attention import ops as _pre_ops
+from .ssd_scan import ops as _ssd_ops
 
 ALL = (
     dict(name="swiglu_gmm", wrapper=_moe_ops.swiglu_gmm,
@@ -38,6 +39,11 @@ ALL = (
          cases=cases.PAGED_PREFILL_CASES,
          inputs=cases.paged_flash_prefill_inputs,
          work=cases.paged_flash_prefill_work, library=None),
+    dict(name="ssd_scan", wrapper=_ssd_ops.ssd_scan,
+         plain=_ssd_ops.ssd_scan_plain, source=_ssd_ops.SOURCE,
+         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:66",
+         cases=cases.SSD_CASES, inputs=cases.ssd_inputs,
+         work=cases.ssd_work, library=None),
 )
 
 

@@ -5,10 +5,11 @@ that computes the same function: what ``chip_smoke.py`` reads from
 
 Cases are ``(label, spec)``: ``served`` is the shape the serving path
 gives the kernel in ``chip_smoke.py``'s serve phases (timed, and the
-numbers of the ``kernels`` line), ``long`` a long context at Mixtral's
-``max_seq_len`` of 32768 (timed), ``ragged`` shapes that exercise the
-masked edges (checked only). Inputs are drawn on the card from the
-caller's generator; page tables from numpy, seeded.
+numbers of the ``kernels`` line), ``long`` a long context (timed: 32768
+tokens, Mixtral's ``max_seq_len``, for attention; 65536 for the SSD scan),
+``ragged`` shapes that exercise the masked edges (checked only). Inputs
+are drawn on the card from the caller's generator; page tables from
+numpy, seeded. A wrapper returns one tensor or a tuple of them.
 
 ``work`` returns ``(bytes, operations)`` that these inputs need: each
 input byte read once and each output byte written once, and the products'
@@ -28,6 +29,7 @@ LONG = 32768                                 # Mixtral-8x7B's max_seq_len
 
 
 def _nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts`` (other values count nothing)."""
     return sum(t.numel() * t.element_size() for t in ts
                if isinstance(t, torch.Tensor))
 
@@ -248,3 +250,56 @@ def paged_flash_prefill_work(args, out) -> Tuple[int, int]:
     kv = 2 * keys * Hk * hd * kp.element_size()
     return kv + _nbytes(q, indptr, indices, lastlen, pos0, out), \
         4 * H * hd * flops_keys
+
+
+# -- the Mamba2 SSD scan ----------------------------------------------------
+
+MAMBA2_SSD = dict(nh=32, hp=64, ds=128, chunk=256)   # mamba2-370m's widths
+
+# served: chip_smoke's Mamba prefill, 4 prompts of 2048 tokens; long: one
+# 65536-token prompt; ragged: a 232-step tail (S = 1000), S < chunk, a
+# non-zero incoming state, the reduced config's widths (hp 32, ds 32,
+# chunk 64) with a tail
+SSD_CASES = [
+    ("served", dict(B=4, S=2048, h0=False, **MAMBA2_SSD)),
+    ("long", dict(B=1, S=65536, h0=False, **MAMBA2_SSD)),
+    ("ragged", dict(B=1, S=1000, h0=False, **MAMBA2_SSD)),
+    ("ragged", dict(B=3, S=37, h0=False, **MAMBA2_SSD)),
+    ("ragged", dict(B=2, S=600, h0=True, **MAMBA2_SSD)),
+    ("ragged", dict(B=2, S=200, nh=8, hp=32, ds=32, chunk=64, h0=True)),
+]
+
+
+def ssd_inputs(spec, gen):
+    """(x, dt, A_log, Bm, Cm, h0, chunk) at the model's scales: dt a
+    softplus of a unit normal shifted by -1, A_log around 0."""
+    B, S, nh, hp, ds = (spec[k] for k in ("B", "S", "nh", "hp", "ds"))
+
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(f32(B, S, nh) - 1.0)
+    h0 = f32(B, nh, ds, hp) * 0.5 if spec["h0"] else None
+    return (_rnd(gen, B, S, nh, hp), dt, f32(nh) * 0.5,
+            _rnd(gen, B, S, ds, scale=0.3), _rnd(gen, B, S, ds, scale=0.3),
+            h0, spec["chunk"])
+
+
+def ssd_work(args, out) -> Tuple[int, int]:
+    """Bytes: x, dt, A_log, B, C (once per row, not per head), h0, y, h.
+    Operations, chunk by chunk over its valid steps v: C B^T once per row
+    over the lower triangle (v(v+1)/2 pairs of ds products), then per head
+    the intra-chunk product over the same triangle (hp per pair), C h (where
+    a state comes in: not the first chunk without h0) and the state update
+    (v ds hp each)."""
+    x, _, _, Bm, _, h0, chunk = args
+    B, S, nh, hp = x.shape
+    ds = Bm.shape[-1]
+    Q = min(chunk, S)
+    ops = 0
+    for c0 in range(0, S, Q):
+        v = min(Q, S - c0)
+        tri = v * (v + 1) // 2
+        state_in = c0 > 0 or h0 is not None
+        ops += 2 * tri * ds + nh * (2 * tri * hp + 2 * v * ds * hp
+                                   * (2 if state_in else 1))
+    return _nbytes(*args, *out), B * ops

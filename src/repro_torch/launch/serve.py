@@ -1,17 +1,21 @@
-"""Serving entry point: the collaborative two-tier MoE engine with continuous
-batching, on the GPU (counterpart of the reference's ``launch/serve.py``,
-collaborative path).
+"""Serving entry point, on the GPU (counterpart of the reference's
+``launch/serve.py``): the collaborative two-tier MoE engine with continuous
+batching for a homogeneous MoE stack, the generic prefill + greedy decode
+loop for any other (the attention-free Mamba2 stack today).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
         [--concurrency 4 --requests 8] [--temperature 0.8 --top-p 0.95] \
         [--kv-paged --page-size 16 --prefill-segment 32] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --batch 2 --prompt 40 --tokens 8 [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
-weights, requests drawn from ``numpy.random.default_rng(--seed)``). Flags
-of options the port does not run yet (prefetch, the host lane, tracing,
-the generic path's ``--batch``) are accepted and raise when set.
-Prints tokens/s and the paper's cache counters.
+weights; requests, and the generic path's prompt batch, drawn from
+``numpy.random.default_rng(--seed)``, since torch cannot reproduce
+``jax.random``). Flags of options the port does not run yet (prefetch,
+the host lane, tracing) are accepted and raise when set. Prints tokens/s
+and, on the engine, the paper's cache counters.
 """
 from __future__ import annotations
 
@@ -22,13 +26,14 @@ import numpy as np
 import torch
 
 from repro_torch.config import get_config, reduced
+from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.serving import SamplingParams, build
 
 # flags of unported options: (argparse dest, value that means "off")
 UNPORTED_FLAGS = {
     "prefetch": False, "prefetch_min_prob": 0.0, "host_compute": False,
     "host_threads": 8, "host_fuse_small": 4, "prefetch_rank_votes": True,
-    "host_backend": "callback", "trace_out": None, "batch": 1,
+    "host_backend": "callback", "trace_out": None,
 }
 
 
@@ -37,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--batch", type=int, default=1,
-                    help="generic (non-MoE) path only; not ported")
+                    help="generic (non-MoE) path only: prompts per batch")
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--indexes", type=int, default=None)
     ap.add_argument("--ways", type=int, default=2)
@@ -101,9 +106,40 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def serve_generic(cfg, args) -> None:
+    """The reference's generic path: one ``[batch, prompt]`` batch, prefill,
+    then greedy argmax for ``--tokens - 1`` decode steps."""
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("serve --device cuda: no CUDA device available; "
+                           "pass --device cpu to run on the CPU")
+    print(f"[serve] generic path: {cfg.name} device={args.device}")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    prompt = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt))
+    logits, state = prefill(params, {"tokens": torch.as_tensor(
+        prompt, device=dev)}, cfg)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    outs = [tok]
+    t0 = time.time()
+    for _ in range(args.tokens - 1):
+        logits, state = decode_step(params, state, {"tokens": tok}, cfg)
+        tok = logits[:, 0].argmax(-1)[:, None]
+        outs.append(tok)
+    generated = torch.cat(outs, dim=1).cpu()      # waits for the device
+    dt = time.time() - t0
+    print(f"  generated {tuple(generated.shape)} in {dt:.2f}s "
+          f"({(args.tokens - 1) * args.batch / max(dt, 1e-9):.1f} tok/s "
+          f"wall)")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = reduced(get_config(args.arch))
+    if cfg.moe is None or cfg.moe_every != 1 or cfg.is_encdec:
+        serve_generic(cfg, args)
+        return
     sample_on = args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
     temp = args.temperature if args.temperature > 0 else 1.0
     n = args.indexes if args.indexes is not None else cfg.num_layers // 2

@@ -1,5 +1,5 @@
-from .transformer import backbone, build_slots, init_params, init_state, \
-    lm_logits
+from .model import decode_step, init_params, init_state, prefill
+from .transformer import backbone, build_slots, lm_logits
 
-__all__ = ["backbone", "build_slots", "init_params", "init_state",
-           "lm_logits"]
+__all__ = ["backbone", "build_slots", "decode_step", "init_params",
+           "init_state", "lm_logits", "prefill"]

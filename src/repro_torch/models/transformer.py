@@ -1,17 +1,22 @@
-"""Decoder-only MoE LM assembly, homogeneous stacks (counterpart of the
+"""Decoder-only LM assembly, homogeneous stacks (counterpart of the
 reference's ``models/transformer.py``).
+
+Two stacks run here: the attention+MoE stack the collaborative engine
+serves, and the attention-free Mamba2 stack of the generic serve path.
+Any other stack (attention + dense FFN, hybrid, encoder-decoder, the
+vlm/audio front ends) raises ``NotImplementedError`` (ROADMAP slice 6).
 
 The parameter tree mirrors the reference's scan-stacked layout: every
 per-layer leaf under ``params["scan"]["s0"]`` carries a leading ``[L]``
-axis (``moe.w1`` is ``[L, E, D, F]``), so the weight bridge maps leaf to
-leaf. The expert tables are the engine's host tier: they live in host
-memory (pinned when the model runs on a GPU); everything else lives on the
-compute device.
+axis (``moe.w1`` is ``[L, E, D, F]``, ``mamba.in_proj`` ``[L, D, ...]``),
+so the weight bridge maps leaf to leaf. The expert tables are the
+engine's host tier: they live in host memory (pinned when the model runs
+on a GPU); everything else lives on the compute device.
 
-Only what serving runs is here: ``backbone`` in prefill and segment mode
-(with the routing trace the cache-warming replay consumes) and
-``lm_logits``. The decode step is the engine's
-(:mod:`repro_torch.serving.engine`).
+``backbone`` runs the MoE stack in prefill and segment mode (with the
+routing trace the cache-warming replay consumes; its decode step is the
+engine's, :mod:`repro_torch.serving.engine`) and the Mamba stack in
+prefill and decode mode.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from . import attention as attn
+from . import ssm
 from .layers import dense_init, embed_lookup, logits_from_embed, rmsnorm
 from .moe import moe_apply, route
 
@@ -49,15 +55,39 @@ def build_slots(cfg: ModelConfig) -> Tuple[List[Slot], int, int]:
     return slots, cfg.num_layers // p, cfg.num_layers % p
 
 
+def _slot_has_ffn(cfg: ModelConfig, slot: Slot) -> bool:
+    return slot.is_moe or cfg.d_ff > 0
+
+
+def stack_kind(cfg: ModelConfig) -> str:
+    """``"moe"`` for a homogeneous attention+MoE stack, ``"mamba"`` for an
+    attention-free Mamba stack without FFN; raises ``NotImplementedError``
+    (naming the ROADMAP slice) for any stack the port cannot run yet."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet (ROADMAP slice 6)")
+    if cfg.frontend_embed_dim or cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} front end "
+                                  f"is not ported yet (ROADMAP slice 6)")
+    slots, _, R = build_slots(cfg)
+    if len(slots) == 1 and not R:
+        if slots[0].kind == "attn" and slots[0].is_moe:
+            return "moe"
+        if slots[0].kind == "mamba" and not _slot_has_ffn(cfg, slots[0]):
+            return "mamba"
+    raise NotImplementedError(
+        f"{cfg.name}: the port runs homogeneous attention+MoE stacks and "
+        f"attention-free Mamba stacks; this {cfg.family} stack (attention "
+        f"with a dense FFN, or a hybrid) is ROADMAP slice 6")
+
+
 def homogeneous_slot(cfg: ModelConfig) -> Slot:
     """The one attention+MoE slot of a homogeneous stack; raises otherwise."""
-    slots, _, R = build_slots(cfg)
-    if len(slots) != 1 or R or slots[0].kind != "attn" \
-            or not slots[0].is_moe or cfg.is_encdec:
+    if stack_kind(cfg) != "moe":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves homogeneous attention+MoE stacks "
-            f"only")
-    return slots[0]
+            f"{cfg.name}: the collaborative engine serves homogeneous "
+            f"attention+MoE stacks only")
+    return build_slots(cfg)[0][0]
 
 
 def layer_params(lp: Params, layer: int) -> Params:
@@ -71,14 +101,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Seeded random parameters with the reference's shapes and scales
     (``models/layers.py::_dense_init``: normal / sqrt(fan_in), fan_in the
     leading axis of each unstacked leaf; the expert tables' leading axis is
-    E). ``generator`` must live on ``device``. Expert tables are drawn on
-    the device one expert at a time and copied into host memory, pinned
-    when ``device`` is a GPU."""
-    homogeneous_slot(cfg)
+    E; the Mamba leaves follow :func:`ssm.mamba_params`). ``generator``
+    must live on ``device``. Expert tables are drawn on the device one
+    expert at a time and copied into host memory, pinned when ``device`` is
+    a GPU."""
+    kind = stack_kind(cfg)
     dev = torch.device(device)
     L, D = cfg.num_layers, cfg.d_model
-    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    E, F = cfg.moe.num_experts, cfg.moe.d_ff
     g = generator
 
     def stacked(shape, dtype=torch.bfloat16):
@@ -102,6 +131,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                       "final_norm": torch.ones(D, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed()
+    if kind == "mamba":
+        layers = [ssm.mamba_params(cfg, g, dev) for _ in range(L)]
+        params["scan"] = {"s0": {
+            "ln1": torch.ones((L, D), device=dev),
+            "mamba": {k: torch.stack([lp[k] for lp in layers])
+                      for k in layers[0]}}}
+        return params
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    E, F = cfg.moe.num_experts, cfg.moe.d_ff
     params["scan"] = {"s0": {
         "ln1": torch.ones((L, D), device=dev),
         "attn": {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
@@ -116,13 +154,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_state(cfg: ModelConfig, batch: int, capacity: int,
                device=None) -> Params:
-    """Decode state: per-layer KV stacked as [L, B, S, Hk, hd]. The paged
-    pool is the same state with ``(num_pages, page_size)`` in place of
-    ``(batch, capacity)``: pages take the batch role, as in the
-    reference's ``init_slots``."""
-    homogeneous_slot(cfg)
-    one = attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
-                             cfg.head_dim, device)
+    """Decode state: per-layer KV stacked as [L, B, S, Hk, hd], or the
+    Mamba state (``conv`` [L, B, K-1, ci] bf16, ``ssd`` [L, B, nh, ds, hp]
+    fp32; ``capacity`` unused). The paged pool is the KV state with
+    ``(num_pages, page_size)`` in place of ``(batch, capacity)``: pages take
+    the batch role, as in the reference's ``init_slots``."""
+    if stack_kind(cfg) == "mamba":
+        one = ssm.init_ssm_state(cfg, batch, device)
+    else:
+        one = attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
+                                 cfg.head_dim, device)
     return {"scan": {"s0": {name: t.expand(cfg.num_layers, *t.shape).clone()
                             for name, t in one.items()}},
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -139,7 +180,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              pages: Optional[torch.Tensor] = None,
              kv_write_min=None, kv_write_max=None
              ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
-    """Embedding + all layers + final norm, in prefill or segment mode.
+    """Embedding + all layers + final norm: the MoE stack in prefill or
+    segment mode, the Mamba stack in prefill or decode mode
+    (:func:`_mamba_backbone`).
 
     Prefill: tokens [B, S]; returns (hidden [B, S, D], decode state with
     the prompt's KV and pos = S, trace). Each layer projects and ropes
@@ -157,6 +200,8 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``top_i``/``top_w`` [L, B, S, K] and post-ln2 hidden ``h2``
     [L, B, S, D] under ``trace["scan"]["s0"]``, from the same router
     weights and h2 that the layer's MoE consults."""
+    if stack_kind(cfg) == "mamba":
+        return _mamba_backbone(params, tokens, cfg, mode, state)
     if mode not in ("prefill", "segment"):
         raise NotImplementedError(f"backbone mode {mode!r} is not ported "
                                   f"(decode runs in the engine)")
@@ -211,6 +256,44 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                  "top_w": torch.stack(tws),
                                  "h2": torch.stack(h2s)}}}
     return x, new_state, trace
+
+
+def _mamba_backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                    mode: str, state: Optional[Params]
+                    ) -> Tuple[torch.Tensor, Params, None]:
+    """The attention-free Mamba stack (the reference's ``_apply_layer``
+    mamba branch). Prefill: tokens [B, S], every layer from zero conv and
+    SSD state, through the ``ssd_scan`` kernel. Decode: tokens [B, 1] and
+    the ``state`` of a prefill or an earlier step, through the recurrence.
+    Returns (hidden [B, S, D], new state with pos advanced, no trace)."""
+    if mode == "segment":
+        raise NotImplementedError(
+            "segment-streamed prefill supports attention layers only")
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"backbone mode {mode!r} is not ported")
+    x = _embed_inputs(params, tokens, cfg)
+    B, S = tokens.shape
+    lp_all = params["scan"]["s0"]
+    st_all = state["scan"]["s0"] if mode == "decode" else None
+    convs, ssds = [], []
+    for layer in range(cfg.num_layers):
+        lp = layer_params(lp_all, layer)
+        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        if mode == "decode":
+            st = {"conv": st_all["conv"][layer], "ssd": st_all["ssd"][layer]}
+            o, new = ssm.mamba_apply(lp["mamba"], h, cfg, st, decode=True)
+        else:
+            o, new = ssm.mamba_apply(lp["mamba"], h, cfg,
+                                     ssm.init_ssm_state(cfg, B, x.device))
+        x = x + o
+        convs.append(new["conv"])
+        ssds.append(new["ssd"])
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    pos = state["pos"] + 1 if mode == "decode" else \
+        torch.tensor(S, dtype=torch.int32, device=x.device)
+    return x, {"scan": {"s0": {"conv": torch.stack(convs),
+                               "ssd": torch.stack(ssds)}},
+               "pos": pos}, None
 
 
 def lm_logits(params: Params, x: torch.Tensor,

@@ -1,6 +1,6 @@
 """The weight bridge (``repro_torch.bridge``) and the port's seeded
 ``init_params``, against the reference's parameter tree on the reduced
-Mixtral.
+Mixtral and the reduced mamba2-370m.
 
 Exact: the round trip reference -> port -> numpy keeps every leaf's bits,
 dtype and shape (bf16 leaves included, which numpy only holds as
@@ -106,3 +106,50 @@ def test_init_params_is_seeded():
         assert torch.equal(x, y)
     assert not torch.equal(a["scan"]["s0"]["moe"]["w1"],
                            c["scan"]["s0"]["moe"]["w1"])
+
+
+@pytest.fixture(scope="module")
+def mamba_tree():
+    cfg = jax_reduced(jax_get_config("mamba2-370m"))
+    return jax.tree.map(np.asarray,
+                        jax_init_params(cfg, jax.random.PRNGKey(0)))
+
+
+def test_mamba_round_trip_is_bitwise(mamba_tree):
+    """The Mamba tree crosses unchanged: bf16 leaves (in_proj, conv_w,
+    conv_b, out_proj, embed) as uint16 bits, A_log, D, dt_bias and norm_w
+    as fp32, every leaf on the compute device (no host tier)."""
+    params = params_from_numpy(mamba_tree, "cpu")
+    m = params["scan"]["s0"]["mamba"]
+    for k in ("in_proj", "conv_w", "conv_b", "out_proj"):
+        assert m[k].dtype == torch.bfloat16, k
+    for k in ("A_log", "D", "dt_bias", "norm_w"):
+        assert m[k].dtype == torch.float32, k
+    back = dict(_leaves(params_to_numpy(params, ml_dtypes.bfloat16)))
+    ref = dict(_leaves(mamba_tree))
+    assert sorted(back) == sorted(ref)
+    for name, a in ref.items():
+        b = back[name]
+        assert (b.dtype, b.shape) == (a.dtype, a.shape), name
+        assert b.tobytes() == a.tobytes(), name
+
+
+def test_mamba_init_params_matches_reference_tree(mamba_tree):
+    """Same leaves, shapes and dtypes; each leaf's spread within sampling
+    error of the reference's (conv_w normal x 0.1, in_proj / out_proj
+    normal / sqrt(fan_in)); the constant leaves equal (A_log, dt_bias and
+    conv_b zero, D and norm_w one); no ln2 and no lm_head (tied)."""
+    cfg = reduced(get_config("mamba2-370m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    got = dict(_leaves(params_to_numpy(params, ml_dtypes.bfloat16)))
+    ref = dict(_leaves(mamba_tree))
+    assert sorted(got) == sorted(ref)
+    assert "lm_head" not in got and "scan/s0/ln2" not in got
+    for name, a in ref.items():
+        b = got[name]
+        assert (b.shape, b.dtype) == (a.shape, a.dtype), name
+        sa, sb = np.std(a.astype(np.float32)), np.std(b.astype(np.float32))
+        if sa == 0:
+            assert np.array_equal(a, b), name
+        else:
+            assert abs(sb / sa - 1) < 0.08, (name, sa, sb)

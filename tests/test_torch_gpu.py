@@ -122,3 +122,46 @@ def test_attention_wrappers_raise_instead_of_falling_back(hopper, name):
     assert not strided.is_contiguous()
     with pytest.raises(ValueError):
         entry["wrapper"](*([args[0], strided] + args[2:]))
+
+
+# -- the SSD scan --------------------------------------------------------------
+
+def _close_pair(got, want):
+    """y (bf16): one bf16 rounding of the largest output; h (fp32, never
+    rounded): fp32 sums over a chunk in another order, 2^-13 of max|h|."""
+    (y, h), (y_want, h_want) = got, want
+    _close(y, y_want)
+    assert torch.isfinite(h).all()
+    tol = 2 ** -13 * h_want.abs().max().item()
+    assert (h - h_want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def test_ssd_scan_matches_plain_on_card(hopper, which):
+    """The ragged cases of ``repro_torch.kernels.cases``: a 232-step tail,
+    S < chunk, a non-zero incoming state, the reduced widths."""
+    entry = _entry("ssd_scan")
+    gen = torch.Generator(device="cuda").manual_seed(which)
+    args = entry["inputs"](_ragged("ssd_scan")[which], gen)
+    reset_launches()
+    got = entry["wrapper"](*args)
+    torch.cuda.synchronize()
+    assert launches()["ssd_scan"] == 1
+    _close_pair(got, entry["plain"](*args))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_raises_instead_of_falling_back(hopper):
+    entry = _entry("ssd_scan")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, dt, A_log, Bm, Cm, h0, chunk = entry["inputs"](
+        _ragged("ssd_scan")[2], gen)
+    with pytest.raises(TypeError):
+        entry["wrapper"](x.float(), dt, A_log, Bm, Cm, h0, chunk)
+    strided = Bm.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError):
+        entry["wrapper"](x, dt, A_log, strided, Cm, h0, chunk)
+    with pytest.raises(ValueError):
+        entry["wrapper"](x, dt, A_log.cpu(), Bm, Cm, h0, chunk)

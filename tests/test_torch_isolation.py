@@ -33,7 +33,8 @@ def test_port_has_sources():
                  "serving/engine.py", "launch/serve.py",
                  "kernels/decode_attention/ops.py",
                  "kernels/prefill_attention/ops.py", "kernels/cases.py",
-                 "serving/kv_pool.py"):
+                 "serving/kv_pool.py", "models/ssm.py", "models/model.py",
+                 "kernels/ssd_scan/ops.py"):
         assert must in names
 
 

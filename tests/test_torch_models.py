@@ -6,6 +6,7 @@ to float32 rounding; bf16 outputs agree to one or two bf16 ulps (the two
 frameworks round bf16 matmuls and elementwise chains at slightly different
 points). Integer outputs (top-k ids) must match exactly.
 """
+import dataclasses
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -72,6 +73,17 @@ def test_config_matches_reference(model):
                  "head_dim", "vocab_size", "rope_theta"):
         assert getattr(full_t, name) == getattr(full_j, name), name
     assert full_t.moe.d_ff == full_j.moe.d_ff
+    # mamba2-370m, full and reduced: every field the port's config has
+    for tc, jc in ((get_config("mamba2-370m"),
+                    jax_get_config("mamba2-370m")),
+                   (reduced(get_config("mamba2-370m")),
+                    jax_reduced(jax_get_config("mamba2-370m")))):
+        for f in dataclasses.fields(tc):
+            if f.name != "ssm":
+                assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
+        assert tc.ssm.d_inner(tc.d_model) == jc.ssm.d_inner(jc.d_model)
+        assert tc.ssm.num_heads(tc.d_model) == jc.ssm.num_heads(jc.d_model)
 
 
 def test_rmsnorm_matches_reference():
