@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
      version at the shapes of its ``cases`` (the served shape, a long
      context at Mixtral's max_seq_len of 32768 for the attention kernels
      and of 65536 tokens for the SSD scan, ragged shapes), with the
-     tolerance printed; at the served and long shapes the times of the
+     tolerance printed, and against a second launch on the same inputs
+     (bitwise); at the served and long shapes the times of the
      kernel (events around the wrapper call, and the profiler's device
      time alone), the plain version and the library yardstick (if any),
      beside the bound its inputs give;
@@ -148,7 +149,13 @@ def check_kernels(kernels):
         for label, spec in k["cases"]:
             args = k["inputs"](spec, gen)
             got = wrapper(*args)
+            again = wrapper(*args)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(_outputs(got), _outputs(again))):
+                raise SystemExit(f"{name} is not bitwise equal from launch "
+                                 f"to launch at {spec}")
+            del again
             want = plain(*args)
             err = 0.0
             for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
@@ -344,7 +351,9 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
     busy = sum(ms for _, ms, _ in rows)
     groups = {"host->device copy": ("HtoD",), "device->host copy": ("DtoH",),
               "device copy": ("DtoD",), "grouped expert kernels":
-              ("grouped_kernel",), "attention kernels": ("flash_kernel",),
+              ("grouped_kernel", "gmm_tma_kernel", "gmm_scalar_kernel"),
+              "attention kernels": ("flash_kernel", "decode_split_kernel",
+                                    "decode_combine_kernel"),
               "ssd scan kernel": ("ssd_kernel",),
               "gemm (projections, router, logits)":
               ("gemm", "gemv", "nvjet", "xmma", "cutlass")}

@@ -20,7 +20,7 @@ ALL = (
     dict(name="gmm", wrapper=_moe_ops.gmm, plain=_moe_ops.gmm_plain,
          source=_moe_ops.SOURCE,
          replaces="src/repro/kernels/moe_gmm/moe_gmm.py:41",
-         cases=cases.MOE_CASES, inputs=cases.gmm_inputs,
+         cases=cases.GMM_CASES, inputs=cases.gmm_inputs,
          work=cases.gmm_work, library=cases.gmm_library),
     dict(name="flash_decode", wrapper=_dec_ops.flash_decode,
          plain=_dec_ops.flash_decode_plain, source=_dec_ops.SOURCE,

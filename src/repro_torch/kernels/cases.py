@@ -46,6 +46,16 @@ MOE_CASES = [("served", (8, 8, 4096, 14336)),     # G, C, D, F on decode
              ("ragged", (1, 3, 36, 52))]
 
 
+# gmm: the same, plus the ring kernel's edges: C = 13 and C = 64 at the
+# down-projection's K and N (two and eight n-tiles a block), a K of 160
+# (the last 64-row tile short), K and N not multiples of 8 (the scalar-load
+# kernel)
+GMM_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
+                         ("ragged", (2, 64, 4096, 14336)),
+                         ("ragged", (1, 8, 4096, 160)),
+                         ("ragged", (2, 5, 300, 1001))]
+
+
 def swiglu_inputs(shape, gen):
     G, C, D, F = shape
     return (_rnd(gen, G, C, D), _rnd(gen, G, D, F, scale=0.02),
@@ -96,6 +106,10 @@ FLASH_DECODE_CASES = [
                     hd=128)),
     ("ragged", dict(B=5, S=130, pos=[5, 129, 64, 0, 100], window=7, H=12,
                     Hk=4, hd=32)),
+    # split S: 8 splits of 640 keys on 132 SMs; windows starting inside
+    # splits 7 and 3, a row whose keys end in split 0, pos = 0
+    ("ragged", dict(B=4, S=5000, pos=[4999, 17, 2500, 0], window=300,
+                    **MIXTRAL_ATTN)),
 ]
 
 

@@ -15,45 +15,446 @@
 //
 // What bounds them on an H100: each K and V element is read once and meets
 // `group` (= 4 for Mixtral) query heads, two flops each way: ~4 flop per
-// byte, far below the ~295 where the tensor cores bind. The bound is bytes:
-// K and V up to each row's position, over 3.35 TB/s (at B = 4, S = 32768,
-// Hk = 8, hd = 128: 537 MB, 0.160 ms).
+// byte, far below the ~295 where the tensor cores bind, and at the long
+// shape (B = 4, S = 32768, Hk = 8, hd = 128) 2.1 GFLOP, which the fp32 CUDA
+// cores do in ~0.03 ms. The bound is bytes: K and V up to each row's
+// position, over 3.35 TB/s (537 MB at the long shape, 0.160 ms). So the
+// products stay on the fp32 CUDA cores; what matters is keeping HBM busy.
 //
-// What the design does about it (flash_tile.cuh has the pass itself):
-//   * one block per (row, kv head) reads each K/V element once for all the
-//     group's query heads (GQA: query head h belongs to kv head h / group);
-//   * the TPU's sequential S grid axis is a loop over 64-key tiles inside
-//     the block, 16-byte loads, all of a tile's loads in flight together;
-//   * the loop stops at the row's position and starts at its window, so a
-//     short row in a long cache reads only its own keys; S need not divide
-//     by the tile (the ragged tail is masked);
-//   * a paged block reads its page ids itself and walks only its own
-//     n_pages pages: no gathered copy of the row's KV is made.
-// Not yet done: at the decode shape one block per (row, kv head) fills 32
-// of 132 SMs; splitting S across blocks with a combine pass is later work.
+// flash_decode_bf16: split S across blocks, then combine.
+//   * grid (row tiles x splits, Hk, B): one block per (row, kv head, split
+//     of the key axis), where one block per (row, kv head) over all keys
+//     would put 32 blocks on 132 SMs at the long shape. The host picks the
+//     splits from the shapes and the SM count (ops.py: decode_splits): as
+//     many as fill 2 blocks on every SM in one wave (at the long shape 8
+//     splits of 4096 keys: 256 blocks);
+//   * each split intersects its keys with the row's visible range
+//     [max(0, pos - window + 1), min(pos, S - 1)] (the mask of
+//     flash_tile.cuh) and walks it in 64-key tiles;
+//   * a ring of K/V tiles in shared memory, filled by TMA: one producer
+//     warp asks for each tile as 3-D boxes (64 keys x 1 head x 64 dims,
+//     128-byte swizzled, zero-filled past the cache) and counts them on the
+//     stage's mbarrier; it refills a stage as soon as the consumers release
+//     it, so the next tile is in flight while this one is scored;
+//   * 8 consumer warps own 8 keys of every tile each and keep their own
+//     online softmax (m, l, acc) in registers: scores by a key a lane over
+//     a quarter of the head dims (q in shared memory as fp32, already
+//     scaled), PV with a lane owning hd / 32 dims; no block barrier inside
+//     the loop. The warps' states merge in warp order at the end;
+//   * with one split (the served shape: S = 49) the block normalises and
+//     writes bf16 directly: no workspace, no second launch. With more, it
+//     writes an fp32 partial (m, l, unnormalised acc) per (row, head,
+//     split) to a workspace the wrapper allocates (a split that sees no
+//     key writes m = -1e30, l = 0, acc = 0), and a second small kernel
+//     merges the partials in split order and rounds to bf16 once. No
+//     atomics: results are bitwise equal from run to run.
+// More splits (12, 16, 32: 3 or more blocks on some SMs), a third ring
+// stage and 4 consumer warps were measured and ran no faster (PERF.md,
+// section 6); PERF.md also gives what still holds the kernel back.
+//
+// paged_flash_decode_bf16 runs the shared pass of flash_tile.cuh: one block
+// per (row, kv head), the S axis a loop over 64-key tiles; a paged block
+// reads its page ids itself and walks only its own n_pages pages.
 //
 // Each entry launches on the given stream, allocates nothing and returns 0,
-// a CUDA error code, or -1 for an unsupported head dimension.
+// a CUDA error code, -1 for an unsupported head dimension, or -2 for a
+// split that does not cover S.
 #include "flash_tile.cuh"
+#include "tma.cuh"
 
+namespace split_decode {
+
+constexpr int kWarps = 8;             // consumer warps
+constexpr int kThreads = 32 * (kWarps + 1);   // + one producer warp
+constexpr int kKT = 64;               // keys per tile
+constexpr int kKW = kKT / kWarps;     // keys per consumer warp
+constexpr int kStages = 2;            // K/V tiles in the ring
+constexpr float kNegInf = -1e30f;
+
+struct Args {
+  const uint16_t* q;                  // [B, H, HD]
+  const uint16_t* k;                  // [B, S, Hk, HD]
+  const uint16_t* v;
+  const int* pos;                     // [B]
+  uint16_t* out;                      // [B, H, HD]
+  float* ws_acc;                      // [B, H, splits, HD], or null
+  float* ws_ml;                       // [B, H, splits, 2] (m, l), or null
+  int S, H, Hk, group, window, splits, split_len;
+  float scale;
+};
+
+// Head dims in 64-wide swizzled boxes (64, 128) or one dense box (32).
+template <int HD>
+__host__ __device__ constexpr bool swizzle() { return HD % tma::kBoxCols == 0; }
+
+constexpr int kParts = 32 / kKW;      // lanes a key: each a part of the dims
+
+template <int HD>
+__host__ __device__ constexpr int q_pitch() { return HD + 4 * kParts; }
+
+template <int HD, int ROWS>
+constexpr int smem_bytes() {
+  return 1024                                   // alignment of the boxes
+         + 2 * kStages * kKT * HD * 2           // K, V tiles
+         + (ROWS * q_pitch<HD>() + kWarps * ROWS * kKW   // q, p
+            + 2 * kWarps * ROWS) * 4            // each warp's m, l
+         + 2 * kStages * 8;                     // full, empty mbarriers
+}
+
+// Element offset of 16-byte chunk c of key j in a K or V tile.
+template <int HD>
+__device__ __forceinline__ int kv_off(int j, int c) {
+  if (swizzle<HD>())                   // box c / 8 of [kKT keys x 64 dims]
+    return (c >> 3) * (kKT * tma::kBoxCols) + tma::swizzled(j, c & 7);
+  return j * HD + c * 8;
+}
+
+// One block per (tile of ROWS query rows of a kv head, kv head, batch row)
+// and split of the key axis. The last warp fills the ring (TMA); the
+// kWarps consumer warps each own kKW keys of every tile and keep their own
+// online-softmax state, so they never wait on one another inside the loop;
+// their states are merged, in warp order, at the end.
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap) {
+  constexpr int kCh = HD / 8;                    // 16-byte chunks a row
+  constexpr int kDPL = HD / 32;                  // PV: head dims a lane
+  constexpr int kQP = q_pitch<HD>();
+  constexpr int kPC = kCh / kParts;              // chunks of a lane's part
+  static_assert(kKT == 64 && kKW * kWarps == kKT && kPC >= 1 &&
+                HD % 32 == 0, "tile shape");
+  static_assert(kWarps * ROWS * HD * 4 <= 2 * kStages * kKT * HD * 2,
+                "the merge buffer reuses the K and V tiles");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (tma::smem_u32(smem_raw) & 1023)) & 1023);
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem);      // [kStages][kKT*HD]
+  uint16_t* vs = ks + kStages * kKT * HD;
+  float* qs = reinterpret_cast<float*>(vs + kStages * kKT * HD);
+  float* ps = qs + ROWS * kQP;                   // [kWarps][ROWS][kKW]
+  float* ml_s = ps + kWarps * ROWS * kKW;        // [kWarps][ROWS][2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ml_s + 2 * kWarps * ROWS);
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(smem);   // [kWarps][ROWS][HD], after
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x % a.splits, row0 = blockIdx.x / a.splits * ROWS;
+  const int rows = min(ROWS, a.group - row0);
+
+  // -- the keys this split sees: its range within the visible one --------
+  const int qpos = a.pos[b];
+  const int lo = a.window > 0 ? max(0, qpos - a.window + 1) : 0;
+  const int s0 = sp * a.split_len;
+  const int j_end = min(min(a.S, s0 + a.split_len), qpos + 1);
+  const int first = max(s0, lo);
+  const int j_begin = s0 + (first - s0) / kKT * kKT;
+  const int n_tiles = first < j_end ? (j_end - j_begin + kKT - 1) / kKT : 0;
+
+  // q rows as fp32, scaled; part p of each row 16 p bytes on, so the parts'
+  // broadcasts fall in distinct banks
+  for (int i = tid; i < ROWS * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float x = 0.f;
+    if (r < rows) {
+      const size_t off = ((size_t)b * a.H + h * a.group + row0 + r) * HD + d;
+      x = __uint_as_float((uint32_t)a.q[off] << 16) * a.scale;
+    }
+    qs[r * kQP + d + d / (HD / kParts) * 4] = x;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      tma::mbar_init(&full[i], 1);
+      tma::mbar_init(&empty[i], kWarps);
+    }
+    tma::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float m[ROWS], l[ROWS], acc[ROWS][kDPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) acc[r][e] = 0.f;
+  }
+
+  if (warp == kWarps) {
+    // -- producer: one lane keeps the ring full ----------------------------
+    for (int t = 0; t < n_tiles; ++t) {
+      if (lane == 0) {
+        const int st = t % kStages;
+        if (t >= kStages) tma::mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        tma::mbar_expect_tx(&full[st], 2 * kKT * HD * 2);
+        const int key = b * a.S + j_begin + t * kKT;
+#pragma unroll
+        for (int bx = 0; bx < (swizzle<HD>() ? HD / tma::kBoxCols : 1); ++bx) {
+          const int off = st * kKT * HD + bx * kKT * tma::kBoxCols;
+          tma::load_3d(ks + off, &kmap, bx * tma::kBoxCols, h, key,
+                       &full[st]);
+          tma::load_3d(vs + off, &vmap, bx * tma::kBoxCols, h, key,
+                       &full[st]);
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // -- consumers: warp w takes keys [kKW w, kKW w + kKW) of every tile ----
+    const int kk = lane % kKW, part = lane / kKW;  // a key, a part of dims
+    float* pw = ps + warp * ROWS * kKW;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      tma::mbar_wait(&full[st], (t / kStages) & 1);
+      const uint16_t* kt = ks + st * kKT * HD;
+      const uint16_t* vt = vs + st * kKT * HD;
+      const int k0 = warp * kKW, jw = j_begin + t * kKT + k0;
+      // 1. scores of this lane's key over its part of the head dims
+      float s[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPC; ++i) {
+        const int c = part * kPC + i;
+        float kf[8];
+        flash_tile::unpack8(*reinterpret_cast<const uint4*>(
+                                kt + kv_off<HD>(k0 + kk, c)), kf);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float* qr = qs + r * kQP + c * 8 + part * 4;
+          const float4 q0 = *reinterpret_cast<const float4*>(qr);
+          const float4 q1 = *reinterpret_cast<const float4*>(qr + 4);
+          s[r] = fmaf(q0.x, kf[0], s[r]);
+          s[r] = fmaf(q0.y, kf[1], s[r]);
+          s[r] = fmaf(q0.z, kf[2], s[r]);
+          s[r] = fmaf(q0.w, kf[3], s[r]);
+          s[r] = fmaf(q1.x, kf[4], s[r]);
+          s[r] = fmaf(q1.y, kf[5], s[r]);
+          s[r] = fmaf(q1.z, kf[6], s[r]);
+          s[r] = fmaf(q1.w, kf[7], s[r]);
+        }
+      }
+      // 2. this warp's online softmax over its kKW keys
+      const int jk = jw + kk;
+      const bool ok = jk < j_end && jk >= lo;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+        for (int o = kKW; o < 32; o <<= 1)
+          s[r] += __shfl_xor_sync(0xffffffffu, s[r], o);
+        const float x = (ok && r < rows) ? s[r] : kNegInf;
+        float mx = x;
+#pragma unroll
+        for (int o = kKW / 2; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        const float p = (ok && r < rows) ? expf(x - m_new) : 0.f;
+        l[r] = l[r] * alpha + (part == 0 ? p : 0.f);
+        m[r] = m_new;
+#pragma unroll
+        for (int e = 0; e < kDPL; ++e) acc[r][e] *= alpha;
+        if (part == 0) pw[r * kKW + kk] = p;
+      }
+      __syncwarp();
+      // 3. acc += p @ V over the warp's keys that are visible; the lane
+      //    owns head dims [kDPL lane, kDPL lane + kDPL)
+      const int c = lane * kDPL / 8, sub = lane * kDPL % 8;
+      for (int j = 0; j < kKW; ++j) {
+        if (jw + j >= j_end || jw + j < lo) continue;   // warp-uniform
+        const uint16_t* vr = vt + kv_off<HD>(k0 + j, c) + sub;
+        float vf[kDPL];
+        if constexpr (kDPL == 4) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(vr);
+          vf[0] = __uint_as_float(raw.x << 16);
+          vf[1] = __uint_as_float(raw.x & 0xffff0000u);
+          vf[2] = __uint_as_float(raw.y << 16);
+          vf[3] = __uint_as_float(raw.y & 0xffff0000u);
+        } else if constexpr (kDPL == 2) {
+          const uint32_t raw = *reinterpret_cast<const uint32_t*>(vr);
+          vf[0] = __uint_as_float(raw << 16);
+          vf[1] = __uint_as_float(raw & 0xffff0000u);
+        } else {
+          vf[0] = __uint_as_float((uint32_t)vr[0] << 16);
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float p = pw[r * kKW + j];
+#pragma unroll
+          for (int e = 0; e < kDPL; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) tma::mbar_arrive(&empty[st]);
+    }
+  }
+  __syncthreads();                     // every tile consumed: K tiles -> red
+
+  // -- merge the consumer warps' states, in warp order -----------------
+  if (warp < kWarps) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e)
+        red[(warp * ROWS + r) * HD + lane * kDPL + e] = acc[r][e];
+      float lt = l[r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, o);
+      if (lane == 0) {
+        ml_s[(warp * ROWS + r) * 2] = m[r];
+        ml_s[(warp * ROWS + r) * 2 + 1] = lt;
+      }
+    }
+  }
+  __syncthreads();
+
+  const size_t row_base = (size_t)b * a.H + h * a.group + row0;
+  for (int i = tid; i < rows * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, ml_s[(w * ROWS + r) * 2]);
+    float o = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(ml_s[(w * ROWS + r) * 2] - mm);
+      o += wt * red[(w * ROWS + r) * HD + d];
+      ll += wt * ml_s[(w * ROWS + r) * 2 + 1];
+    }
+    if (a.ws_acc == nullptr) {
+      a.out[(row_base + r) * HD + d] = __bfloat16_as_ushort(
+          __float2bfloat16_rn(o / fmaxf(ll, 1e-30f)));
+    } else {
+      a.ws_acc[((row_base + r) * a.splits + sp) * HD + d] = o;
+      if (d == 0) {
+        float* ml = a.ws_ml + ((row_base + r) * a.splits + sp) * 2;
+        ml[0] = mm;
+        ml[1] = ll;
+      }
+    }
+  }
+}
+
+// Merges the splits' partials of one (row, query head), in split order:
+// out = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s, m = max_s m_s.
+template <int HD>
+__global__ void __launch_bounds__(HD)
+decode_combine_kernel(const float* __restrict__ ws_acc,
+                      const float* __restrict__ ws_ml,
+                      uint16_t* __restrict__ out, int H, int splits) {
+  const size_t row = (size_t)blockIdx.y * H + blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = ws_ml + row * splits * 2;
+  const float* acc = ws_acc + row * splits * HD + d;
+  float m = kNegInf;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[2 * s]);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float w = expf(ml[2 * s] - m);
+    l += w * ml[2 * s + 1];
+    o += w * acc[(size_t)s * HD];
+  }
+  out[row * HD + d] = __bfloat16_as_ushort(__float2bfloat16_rn(
+      o / fmaxf(l, 1e-30f)));
+}
+
+// Whether a kernel's shared-memory limit has been raised.
+template <int HD, int ROWS>
+bool smem_raised = false;
+
+// The K and V maps: [B*S keys][Hk][HD] bf16, boxes of kKT keys x 1 head x
+// 64 dims (128-byte swizzled) or x HD dims (32: dense).
+template <int HD>
+int encode_maps(const Args& a, int B, CUtensorMap* kmap, CUtensorMap* vmap) {
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)a.Hk,
+                              (cuuint64_t)B * a.S};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
+                                 (cuuint64_t)a.Hk * HD * 2};
+  const cuuint32_t box[3] = {swizzle<HD>() ? tma::kBoxCols : HD, 1, kKT};
+  const int err =
+      tma::encode_bf16(kmap, a.k, 3, dims, strides, box, swizzle<HD>());
+  return err != 0 ? err
+                  : tma::encode_bf16(vmap, a.v, 3, dims, strides, box,
+                                     swizzle<HD>());
+}
+
+// Raises the kernel's dynamic shared-memory limit once (0 or an error).
+template <int HD, int ROWS>
+int raise_smem() {
+  if (smem_raised<HD, ROWS>) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      decode_split_kernel<HD, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HD, ROWS>());
+  if (e != cudaSuccess) return (int)e;
+  smem_raised<HD, ROWS> = true;
+  return 0;
+}
+
+template <int HD, int ROWS>
+int launch(const Args& a, int B, int row_tiles, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<HD, ROWS>();
+  CUtensorMap kmap, vmap;
+  int err = encode_maps<HD>(a, B, &kmap, &vmap);
+  if (err == 0) err = raise_smem<HD, ROWS>();
+  if (err != 0) return err;
+  const dim3 grid(row_tiles * a.splits, a.Hk, B);
+  decode_split_kernel<HD, ROWS><<<grid, kThreads, smem, stream>>>(a, kmap,
+                                                                  vmap);
+  const int launched = (int)cudaGetLastError();
+  if (launched != 0 || a.splits == 1) return launched;
+  decode_combine_kernel<HD><<<dim3(a.H, B), HD, 0, stream>>>(
+      a.ws_acc, a.ws_ml, a.out, a.H, a.splits);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_rows(const Args& a, int B, cudaStream_t stream) {
+  if (a.group <= 4) return launch<HD, 4>(a, B, 1, stream);
+  if (a.group <= 8) return launch<HD, 8>(a, B, 1, stream);
+  return launch<HD, 16>(a, B, (a.group + 15) / 16, stream);
+}
+
+}  // namespace split_decode
+
+// splits blocks per (row, kv head), each over split_len keys (a multiple of
+// 64, splits * split_len >= S); with splits > 1 the partials go to ws_acc
+// [B, H, splits, hd] and ws_ml [B, H, splits, 2] and a second kernel
+// combines them into out.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
-                                 const int* pos, void* out, int B, int S,
-                                 int H, int Hk, int hd, int window,
-                                 float scale, void* stream) {
-  flash_tile::Args a{};
+                                 const int* pos, void* out, void* ws_acc,
+                                 void* ws_ml, int B, int S, int H, int Hk,
+                                 int hd, int window, float scale, int splits,
+                                 int split_len, void* stream) {
+  if (splits < 1 || split_len % split_decode::kKT != 0 ||
+      (long long)splits * split_len < S ||
+      (long long)(splits - 1) * split_len >= S ||
+      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+    return -2;
+  split_decode::Args a{};
   a.q = (const uint16_t*)q;
   a.k = (const uint16_t*)k;
   a.v = (const uint16_t*)v;
-  a.out = (uint16_t*)out;
   a.pos = pos;
-  a.C = 1;
+  a.out = (uint16_t*)out;
+  a.ws_acc = splits > 1 ? (float*)ws_acc : nullptr;
+  a.ws_ml = splits > 1 ? (float*)ws_ml : nullptr;
+  a.S = S;
   a.H = H;
   a.Hk = Hk;
   a.group = H / Hk;
-  a.S = S;
   a.window = window;
+  a.splits = splits;
+  a.split_len = split_len;
   a.scale = scale;
-  return flash_tile::launch<false>(a, B, hd, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32: return split_decode::launch_rows<32>(a, B, s);
+    case 64: return split_decode::launch_rows<64>(a, B, s);
+    case 128: return split_decode::launch_rows<128>(a, B, s);
+    default: return -1;
+  }
 }
 
 extern "C" int paged_flash_decode_bf16(const void* q, const void* k_pages,

@@ -7,9 +7,14 @@ Pallas TPU kernels (``src/repro/kernels/decode_attention/``:
 ``paged.py::paged_flash_decode`` / ``_paged_kernel``) with the hand-written
 CUDA kernels in ``csrc/decode_attention.cu``; that file's header gives
 their bound (bytes: K and V read once up to each row's position) and what
-the design does about it. The wrapper contracts are the reference's
-(``decode_attention/ops.py``): ``pos`` is a scalar or a ``[B]`` vector,
-and CSR tables sized for another batch raise ``ValueError``.
+the design does about it. ``flash_decode`` splits the key axis across
+blocks (:func:`decode_splits` picks the splits from the shapes and the
+card's SM count); with more than one split a second kernel combines the
+fp32 partials in split order (:func:`flash_decode_split_plain` is that
+algorithm in plain PyTorch, for the tests). The wrapper contracts are the
+reference's (``decode_attention/ops.py``): ``pos`` is a scalar or a
+``[B]`` vector, and CSR tables sized for another batch raise
+``ValueError``.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 a CUDA tensor it launches the kernel or raises: it never falls back. Each
@@ -27,13 +32,17 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)            # head dimensions the kernels are built for
+KEY_TILE = 64                        # keys per tile of the split kernel (kKT)
+SMS = 132                            # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 2                    # split blocks an SM runs (decode_splits)
 
 
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+    lib.flash_decode_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                      f, i, i, p]
     lib.flash_decode_bf16.restype = i
     lib.paged_flash_decode_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                             i, i, i, f, p]
@@ -93,6 +102,8 @@ def check_cuda(name: str, floats, ints=()) -> None:
 def raise_on(err: int, name: str) -> None:
     if err == -1:
         raise ValueError(f"{name}: unsupported head dimension")
+    if err == -2:
+        raise ValueError(f"{name}: the key splits do not cover S")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -151,6 +162,62 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_splits(B: int, S: int, H: int, Hk: int, sms: int = SMS):
+    """(splits, split_len) of ``flash_decode``'s key axis, from the shapes
+    alone (the positions stay on the card) and the card's SM count: as many
+    splits as put ``BLOCKS_PER_SM`` blocks on every SM in one wave, each at
+    least 4 64-key tiles, none empty; a short cache gets one split. Two
+    blocks an SM is what measured fastest on an H100 at the long shape (8
+    splits of 4096 keys; 12, 16 and 32 splits ran slower)."""
+    group = H // Hk
+    rows = B * Hk * (1 if group <= 16 else -(-group // 16))
+    tiles = max(1, -(-S // KEY_TILE))
+    n = max(1, min(tiles // 4, BLOCKS_PER_SM * sms // rows))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * KEY_TILE
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, pos, window: int = -1,
+                             splits=None) -> torch.Tensor:
+    """``flash_decode``'s two passes in plain PyTorch. Each split of the
+    key axis (``decode_splits`` unless given as ``(splits, split_len)``)
+    yields its max m, sum l and unnormalised fp32 acc over the keys it
+    sees (m = -1e30, l = 0, acc = 0 where it sees none); the combine
+    weighs each by exp(m_s - max m) in split order and rounds once. For
+    the tests: the serving path never calls it."""
+    B, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    group = H // Hk
+    n, ln = splits or decode_splits(B, S, H, Hk)
+    pos_b = pos_vector(pos, B, q.device)
+    qg = q.reshape(B, 1, Hk, group, hd).float() * hd ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgk", qg, k.float())     # [B, Hk, g, S]
+    j = torch.arange(S, device=q.device)
+    valid = j[None, :] <= pos_b[:, None]
+    if window > 0:
+        valid &= (pos_b[:, None] - j[None, :]) < window
+    ms, ls, accs = [], [], []
+    for sp in range(n):
+        seen = valid & (j[None, :] >= sp * ln) & (j[None, :] < (sp + 1) * ln)
+        ss = torch.where(seen[:, None, None, :], s, NEG_INF)
+        m = ss.max(dim=-1).values                            # [B, Hk, g]
+        p = torch.where(seen[:, None, None, :], torch.exp(ss - m[..., None]),
+                        0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, v.float()))
+    m_all = torch.stack(ms).max(dim=0).values
+    l = torch.zeros_like(m_all)
+    o = torch.zeros_like(accs[0])
+    for m, ls_, acc in zip(ms, ls, accs):
+        w = torch.exp(m - m_all)
+        l = l + w * ls_
+        o = o + w[..., None] * acc
+    o = o / l.clamp(min=1e-30)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
 def paged_flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, page_indptr: torch.Tensor,
                              page_indices: torch.Tensor,
@@ -184,9 +251,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
         return out.zero_()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, split_len = decode_splits(B, S, H, Hk, sms)
+    ws_acc = ws_ml = None
+    if splits > 1:
+        ws_acc = torch.empty((B, H, splits, hd), dtype=torch.float32,
+                             device=q.device)
+        ws_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
+                            device=q.device)
     err = _lib().flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_b.data_ptr(),
-        out.data_ptr(), B, S, H, Hk, hd, int(window), hd ** -0.5,
+        out.data_ptr(), *(t.data_ptr() if t is not None else None
+                          for t in (ws_acc, ws_ml)),
+        B, S, H, Hk, hd, int(window), hd ** -0.5, splits, split_len,
         stream_of(q))
     raise_on(err, "flash_decode")
     flash_decode.launches += 1

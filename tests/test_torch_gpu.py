@@ -165,3 +165,91 @@ def test_ssd_scan_raises_instead_of_falling_back(hopper):
         entry["wrapper"](x, dt, A_log, strided, Cm, h0, chunk)
     with pytest.raises(ValueError):
         entry["wrapper"](x, dt, A_log.cpu(), Bm, Cm, h0, chunk)
+
+
+# -- the redesigned kernels: flash_decode (split S) and gmm (TMA ring) -----
+
+REDESIGNED = ("flash_decode", "gmm")
+
+
+def _edge_cases(name):
+    """The ragged cases that reach the new kernels' edges (``cases.py``):
+    flash_decode's 8 splits of S = 5000 with windows from inside splits and
+    a row that ends in split 0; gmm's C = 13 and 64 at K = 14336, a K of
+    160 (a short last tile), K and N not multiples of 8."""
+    return _ragged(name)[3:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, which", [("flash_decode", 0), ("gmm", 0),
+                                         ("gmm", 1), ("gmm", 2), ("gmm", 3)])
+def test_redesigned_kernels_match_plain_on_card(hopper, name, which):
+    entry = _entry(name)
+    gen = torch.Generator(device="cuda").manual_seed(which)
+    args = entry["inputs"](_edge_cases(name)[which], gen)
+    reset_launches()
+    got = entry["wrapper"](*args)
+    torch.cuda.synchronize()
+    assert launches()[name] == 1
+    _close(got, entry["plain"](*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", REDESIGNED)
+@pytest.mark.parametrize("label", ["served", "long", "ragged"])
+def test_redesigned_kernels_are_bitwise_equal_run_to_run(hopper, name, label):
+    """No atomics, and flash_decode's splits are combined in a fixed
+    order, so two launches on the same inputs give the same bits."""
+    entry = _entry(name)
+    specs = [spec for lbl, spec in entry["cases"] if lbl == label]
+    if not specs:
+        pytest.skip(f"{name} has no {label} case")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = entry["inputs"](specs[-1], gen)
+    first = entry["wrapper"](*args)
+    second = entry["wrapper"](*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of fn runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+def test_one_split_runs_one_kernel_and_no_workspace(hopper):
+    """At the served attention shape, and for gmm at any shape, the wrapper
+    allocates only its output and launches one kernel; a long context runs
+    the split kernel and its combine pass."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.moe_gmm import ops as moe
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    served = dict(_entry("flash_decode")["cases"])["served"]
+    att = _entry("flash_decode")["inputs"](served, gen)
+    x = torch.randn((8, 8, 14336), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((8, 14336, 4096), generator=gen,
+                    device="cuda").bfloat16()
+    assert dec.decode_splits(4, served["S"], served["H"],
+                             served["Hk"])[0] == 1
+    for fn in (lambda: dec.flash_decode(*att), lambda: moe.gmm(x, w)):
+        fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+            == before + 1
+        assert len(_device_kernels(fn)) == 1
+    long = dict(_entry("flash_decode")["cases"])["long"]
+    att = _entry("flash_decode")["inputs"](long, gen)
+    names = _device_kernels(lambda: dec.flash_decode(*att))
+    assert len(names) == 2 and "combine" in names[1]
