@@ -351,10 +351,11 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
     busy = sum(ms for _, ms, _ in rows)
     groups = {"host->device copy": ("HtoD",), "device->host copy": ("DtoH",),
               "device copy": ("DtoD",), "grouped expert kernels":
-              ("grouped_kernel", "gmm_tma_kernel", "gmm_scalar_kernel"),
+              ("gmm_tma_kernel", "gmm_scalar_kernel"),
               "attention kernels": ("flash_kernel", "decode_split_kernel",
                                     "decode_combine_kernel"),
-              "ssd scan kernel": ("ssd_kernel",),
+              "ssd scan kernel": ("chunk_state_kernel", "state_pass_kernel",
+                                  "chunk_output_kernel"),
               "gemm (projections, router, logits)":
               ("gemm", "gemv", "nvjet", "xmma", "cutlass")}
     by = {g: 0.0 for g in groups}

@@ -15,7 +15,7 @@ ALL = (
     dict(name="swiglu_gmm", wrapper=_moe_ops.swiglu_gmm,
          plain=_moe_ops.swiglu_gmm_plain, source=_moe_ops.SOURCE,
          replaces="src/repro/kernels/moe_gmm/moe_gmm.py:82",
-         cases=cases.MOE_CASES, inputs=cases.swiglu_inputs,
+         cases=cases.SWIGLU_CASES, inputs=cases.swiglu_inputs,
          work=cases.swiglu_work, library=None),
     dict(name="gmm", wrapper=_moe_ops.gmm, plain=_moe_ops.gmm_plain,
          source=_moe_ops.SOURCE,

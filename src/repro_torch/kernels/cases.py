@@ -56,6 +56,15 @@ GMM_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
                          ("ragged", (2, 5, 300, 1001))]
 
 
+# swiglu_gmm: the same, plus the ring kernel's edges at the served K and N:
+# C = 13 and C = 64 (two and eight n-tiles a block), a K of 160 (the last
+# 64-row tile short), K and N not multiples of 8 (the scalar-load kernel)
+SWIGLU_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
+                            ("ragged", (2, 64, 4096, 14336)),
+                            ("ragged", (1, 8, 160, 14336)),
+                            ("ragged", (2, 5, 300, 1001))]
+
+
 def swiglu_inputs(shape, gen):
     G, C, D, F = shape
     return (_rnd(gen, G, C, D), _rnd(gen, G, D, F, scale=0.02),
@@ -273,7 +282,8 @@ MAMBA2_SSD = dict(nh=32, hp=64, ds=128, chunk=256)   # mamba2-370m's widths
 # served: chip_smoke's Mamba prefill, 4 prompts of 2048 tokens; long: one
 # 65536-token prompt; ragged: a 232-step tail (S = 1000), S < chunk, a
 # non-zero incoming state, the reduced config's widths (hp 32, ds 32,
-# chunk 64) with a tail
+# chunk 64) with a tail, exactly one chunk (with an incoming state), a last
+# chunk of a single step (S = 513)
 SSD_CASES = [
     ("served", dict(B=4, S=2048, h0=False, **MAMBA2_SSD)),
     ("long", dict(B=1, S=65536, h0=False, **MAMBA2_SSD)),
@@ -281,6 +291,8 @@ SSD_CASES = [
     ("ragged", dict(B=3, S=37, h0=False, **MAMBA2_SSD)),
     ("ragged", dict(B=2, S=600, h0=True, **MAMBA2_SSD)),
     ("ragged", dict(B=2, S=200, nh=8, hp=32, ds=32, chunk=64, h0=True)),
+    ("ragged", dict(B=2, S=256, h0=True, **MAMBA2_SSD)),
+    ("ragged", dict(B=1, S=513, h0=False, **MAMBA2_SSD)),
 ]
 
 

@@ -1,6 +1,6 @@
 // Tensor Memory Accelerator (TMA) loads with an mbarrier per ring stage
 // (sm_90), shared by the kernels that stream their operands through a ring
-// of shared-memory tiles (moe_gmm.cu's gmm, decode_attention.cu's
+// of shared-memory tiles (moe_gmm.cu's grouped matmuls, decode_attention.cu's
 // split flash-decode).
 //
 // A tensor map describes a bf16 tensor in device memory; one thread asks for

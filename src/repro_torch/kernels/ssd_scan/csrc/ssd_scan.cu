@@ -1,51 +1,71 @@
 // Mamba2 SSD chunked scan (state-space duality), written for Hopper.
 //
 // Replaces the JAX package's Pallas TPU kernel
-// src/repro/kernels/ssd_scan/ssd_scan.py:66 (ssd_scan, body _ssd_kernel),
-// in the model layout of src/repro/models/ssm.py::ssd_chunked:
+// src/repro/kernels/ssd_scan/ssd_scan.py:66 (ssd_scan, body _ssd_kernel
+// :30), in the model layout of src/repro/models/ssm.py::ssd_chunked:
 //   ssd_scan_bf16(x [B,S,nh,HP] bf16, dt [B,S,nh] f32, A_log [nh] f32,
 //                 Bm [B,S,DS] bf16, Cm [B,S,DS] bf16, h0 [B,nh,DS,HP] f32
-//                 or null) -> y [B,S,nh,HP] bf16, h [B,nh,DS,HP] f32
-// Per (row b, head) and per chunk of Q steps, with a = -exp(A_log) * dt and
-// xd = x * dt formed in fp32 here, acs the chunk's cumulative sum of a:
-//   y[q]  = sum_{k<=q} (C_q . B_k) exp(acs_q - acs_k) xd[k]
-//           + exp(acs_q) C_q h                       (h: the chunk's input)
-//   h'    = exp(acs_end) h + sum_k B_k exp(acs_end - acs_k) xd[k]^T
-// Rounding points are the reference's: everything in fp32, y rounded once
-// to bf16. The ragged tail (S not a multiple of Q) is masked; it gives the
-// state the reference's dt = 0 padding gives.
+//                 or null, workspace) -> y [B,S,nh,HP] bf16, h [B,nh,DS,HP]
+// Per (row b, head) and chunk c of Q steps, with a = -exp(A_log) * dt, acs
+// the chunk's cumulative sum of a and h_c the state after chunk c:
+//   y[q] = sum_{k<=q} (C_q . B_k) exp(acs_q - acs_k) dt_k x_k
+//          + exp(acs_q) C_q h_{c-1}
+//   h_c  = exp(acs_end) h_{c-1} + s_c,
+//   s_c  = sum_k B_k exp(acs_end - acs_k) dt_k x_k^T
+// y is rounded once to bf16, h stays fp32. The ragged tail (S not a
+// multiple of Q) is masked; it gives the state the reference's dt = 0
+// padding gives.
 //
 // What bounds it on an H100. At the served shape (B = 4, S = 2048, 32 heads
-// of 64, DS = 128, Q = 256) the call moves ~76 MB (x and y dominate: B and C
-// are shared by all heads and count once per row) and needs ~13 GFLOP
-// (C B^T once per row and chunk over the lower triangle, the intra-chunk
-// product over the lower triangle, C h and the state update per head):
-// bytes bound it, ~0.023 ms at 3.35 TB/s, against ~0.013 ms of operations
-// at the bf16 tensor-core peak.
+// of 64, DS = 128, Q = 256) the call's inputs and outputs are ~76 MB (x and
+// y dominate: B and C are shared by all heads and count once per row):
+// ~0.023 ms at 3.35 TB/s, against ~0.013 ms of its operations at the bf16
+// tensor-core peak. The TPU kernel's sequential grid axis over chunks
+// cannot become a loop of one block per (row, head): 128 blocks, 32 at
+// B = 1, reached 2% of the bound. The work has to spread over the whole
+// card.
 //
-// What this first design does, and does not yet do, about it:
-//   * one block per (row, head) walks the chunks in order; the TPU's
-//     sequential chunk grid axis becomes that loop, and the state h
-//     [DS, HP] fp32 (32 KB) stays in shared memory across chunks: it never
-//     round-trips device memory;
-//   * a chunk's xd (fp32) and B (bf16) sit in shared memory; C and the
-//     [64, 64] score tile are staged per 64-step query tile, so the
-//     [Q, Q] scores are never formed whole (256 KB at Q = 256); key tiles
-//     above the diagonal are skipped, the mask is applied before the exp
-//     (so exp never sees the positive differences above the diagonal);
-//   * the C h term of every query tile reads the chunk's incoming h; the
-//     state update is summed in registers and written only after every
-//     query tile has used h;
-//   * acs is a per-chunk scan (a warp scan of lane-local sums), never a
-//     prefix over S: at S = 65536 differences of large sums lose digits;
-//   * B and C are read once per (row, head) from device memory: the 32
-//     heads of a row re-read the same rows, from L2. The reference adapter's
-//     per-head broadcast of B/C (32x the bytes) is not materialised.
-// The products run on fp32 CUDA cores, register-tiled 4 x 4 per thread. One
-// block per (row, head) is 128 blocks at the served shape but only 32 at
-// B = 1 (a quarter of the 132 SMs). Later work: a chunk-parallel two-pass
-// design (intra-chunk terms and chunk states in parallel, then a short
-// sequential pass over chunk states), and mma/wgmma for the three products.
+// The design: chunk-parallel, three kernels on the caller's stream.
+//   1. chunk_state_kernel, grid (chunk, head pair, row): the chunk's acs
+//      (a per-chunk warp scan, never a prefix over S: at S = 65536
+//      differences of large sums would lose digits), its decay
+//      exp(acs_end) and its own state s_c = (B o w)^T x, w_k = exp(acs_end
+//      - acs_k) dt_k, into an fp32 workspace [B, chunks, nh, DS, HP];
+//   2. state_pass_kernel, grid (cells, head, row): h_c = exp(acs_end,c)
+//      h_{c-1} + s_c in chunk order, elementwise per state cell (sequential
+//      only over chunks), overwriting s_c with the chunk's incoming state
+//      h_{c-1}, split into bf16 hi and lo for the tensor cores, and writing
+//      the final h;
+//   3. chunk_output_kernel, grid (128-query tile x chunk, head pair, row):
+//      y of its queries, (C B^T o L o dt) x over the keys up to its tile's
+//      diagonal, plus exp(acs_q) C h_{c-1}; C B^T is formed once for both
+//      heads of the pair. Below the diagonal exp(acs_q - acs_k) is taken
+//      as exp(acs_q - acs_m) w_k against the end m of k's 16-key block
+//      (both exponents <= 0), so a 16 x 16 block needs 2 exps a row, not
+//      16. Rounded once to bf16.
+// The chunk states add 4 B*chunks*nh*DS*HP bytes per pass over them (33.5
+// MB at the served shape, 268 MB at S = 65536), four passes: written by 1,
+// read and rewritten by 2, read by 3.
+// Products run on the tensor cores, fp32 accumulators. C B^T has two exact
+// bf16 operands (mma.sync m16n8k16). The other three products have one
+// fp32 operand (B o w, C B^T o L o dt, h_{c-1}) and one exact bf16 operand
+// (x, x, C): the fp32 one is split into bf16 hi + lo and both are
+// multiplied, so each product is an fp32 product to about 2^-17 of the
+// operand. Those run as wgmma m64n64k16 with the split operand in
+// registers and the bf16 one (x, or the state's planes) read by the tensor
+// cores from a 128-byte-swizzled tile. Tiles reach the shared memory by
+// cp.async, double-buffered over 64-key tiles. Every sum runs in a fixed
+// order and nothing is atomic: the output is bitwise equal from launch to
+// launch.
+// The split doubles three of the four products: ~33 GFLOP at the served
+// shape, so the products, not the bytes, set the pace (PERF.md, section 6).
+// Measured and dropped there: the state kernel on mma.sync (0.054 ms
+// served, 0.040 on wgmma); 64-query tiles of 4 warps for the output kernel
+// (0.167-0.172 ms, 0.149-0.155 at 128 queries and 8 warps); one output
+// block an SM with all the registers it asks for (0.197); the key tiles and
+// the state prefetched to L2 ahead of their copies (slower: 0.047 and
+// 0.156); double-buffered wgmma operands, the state's copy overlapped
+// with the last key tile, and C h first into y's accumulators (no change).
 //
 // The entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError() (0 = launched), or -1 for widths it is not built for.
@@ -53,14 +73,116 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGrid = 16;            // threads as a 16 x 16 grid over a tile
-constexpr int kT = 64;               // query / key tile, in steps
-constexpr int kMaxQ = 256;           // longest chunk the kernel takes
-constexpr int kRows = kT / kGrid;    // tile rows per thread (4)
-static_assert(kGrid * kGrid == kThreads, "one thread per grid cell");
+using namespace wmma_sync;
+
+constexpr int kThreads = 128;        // the state pass's block
+constexpr int kT = 64;               // key tile, in steps
+constexpr int kQT = 128;             // query tile of the output kernel
+constexpr int kOutWarps = kQT / 16;  // one warp per 16 queries
+constexpr int kMaxQ = 256;           // longest chunk the kernels take
+constexpr int kHG = 2;               // heads a block (C B^T shared by them)
+
+// Warps of the chunk-state kernel: a warpgroup (4 warps, 64 state rows)
+// per 64 rows of DS.
+__host__ __device__ constexpr int state_warps(int DS) {
+  return 4 * ((DS + 63) / 64);
+}
+
+// -- wgmma: a warpgroup's m64n64k16 product, A (64 x 16) from registers in
+// mma.sync's A layout (warp i of the group holds rows 16 i .. 16 i + 15), B
+// (16 x 64) read by the tensor cores from shared memory. B is a [k][64]
+// bf16 tile stored N-major ("transposed"), rows of 128 bytes in the
+// 128-byte swizzle (16-byte piece v of row r at piece v ^ (r % 8)), 8-row
+// groups 1024 bytes apart. The accumulators are mma.sync's C layout, one
+// [4] per n8 tile. ------------------------------------------------------
+
+constexpr int kXW = 64;              // bf16 columns of a swizzled tile
+
+__device__ __forceinline__ uint64_t desc_n128(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders the compiler's accesses to the accumulators against the async
+// products (they are not to be read or written while a group is in flight).
+__device__ __forceinline__ void wg_hold(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+// The same for A fragments: computed before the fence that precedes their
+// product.
+__device__ __forceinline__ void wg_hold(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[r]) :: "memory");
+}
+
+// Makes this thread's cp.async writes to shared memory visible to the
+// tensor cores' (async-proxy) reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// swizzle's period), by pointer arithmetic so that the compiler keeps
+// seeing shared memory.
+__device__ __forceinline__ unsigned char* smem_align(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// cp.async of rows [t_lo, t_lo + 64) of x (HP <= 64 bf16 a row, row stride
+// `stride`) into a swizzled [64][64] tile; columns past HP and rows at or
+// past nv zero-filled.
+template <int HP, int NTH>
+__device__ __forceinline__ void load_x_swz(uint16_t* dst, const uint16_t* src,
+                                           size_t stride, int t_lo, int nv) {
+  for (int i = threadIdx.x; i < kT * 8; i += NTH) {
+    const int r = i >> 3, v = i & 7, t = t_lo + r;
+    const bool ok = t < nv && v < HP / 8;
+    cp_async16(dst + r * kXW + ((v ^ (r & 7)) << 3),
+               ok ? src + (size_t)t * stride + v * 8 : src, ok ? 16 : 0);
+  }
+}
 
 struct Args {
   const uint16_t* x;
@@ -71,304 +193,543 @@ struct Args {
   const float* h0;
   uint16_t* y;
   float* h;
-  int S, nh, Q;
+  float* states;                     // [B, nc, nh, DS, HP]
+  float* decay;                      // [B, nc, nh]
+  int S, nh, Q, nc;
 };
 
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// Shared memory of one block, in 4-byte words, for a chunk padded to Qp.
-// B and C rows are DS bf16 packed two to a word, with an odd row stride W so
-// that neighbouring rows fall in neighbouring banks.
+// The shared tiles of both chunk kernels. A ring stage holds a 64-step
+// tile of B rows, padded by 16 bytes a row (conflict-free ldmatrix), then
+// one swizzled [64][64] x tile a head (wgmma's B operand); the output
+// kernel reuses the ring for the incoming state's hi and lo planes. Every
+// size is a multiple of 1024 bytes, so every tile stays aligned for the
+// swizzle.
 template <int HP, int DS>
-struct Layout {
-  static constexpr int W = DS / 2 + 1;     // words per B / C row
-  static constexpr int GW = kT + 1;        // words per score-tile row
-  __host__ __device__ static int words(int Qp) {
-    return DS * HP + Qp * HP + Qp * W + kT * W + kT * GW + 4 * Qp;
-  }
+struct Tiles {
+  static_assert(HP <= kXW && DS % 16 == 0, "widths");
+  static constexpr int BP = DS + 8;          // bf16 per B / C row
+  static constexpr int kB = kT * BP;         // elements of a B tile
+  static constexpr int kXS = kT * kXW;       // elements of a swizzled x tile
+  static constexpr int kSStage = kB + kHG * kXS;
+  static_assert(kB * 2 % 1024 == 0, "B tile keeps the x tiles aligned");
+  static_assert(2 * DS * kXW <= kSStage, "a head's state planes fit a stage");
+  // per head: dt, acs and the keys' weights w of the chunk
+  static constexpr int kScalars = 3 * kHG * kMaxQ * 4;
 };
 
-// Rows [t_lo, t_lo + n) of a [.., DS] bf16 matrix into packed shared rows,
-// rows at or past `valid` zero. `src` points at the chunk's first row.
-template <int DS>
-__device__ __forceinline__ void load_rows(uint32_t* dst, const uint16_t* src,
-                                          int t_lo, int n, int valid) {
-  constexpr int W = DS / 2 + 1;
-  constexpr int V = DS / 8;               // 16-byte vectors per row
-  for (int i = threadIdx.x; i < n * V; i += kThreads) {
+// One head's chunk: dt_s[t] (0 past nv) and acs_s[t], the inclusive
+// cumulative sum of a = A dt over t < Qp, by one warp: lane-local sums of
+// Qp / 32 steps, then a warp scan. The same instructions in both kernels
+// that read acs, so they agree bit for bit.
+__device__ __forceinline__ void chunk_scan(const float* dt, int nh, int nv,
+                                           float A, int Qp, float* dt_s,
+                                           float* acs_s, int lane) {
+  constexpr int kPer = kMaxQ / 32;
+  const int per = Qp / 32, base = lane * per;
+  float dv[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)           // the loads first, all in flight
+    dv[j] = j < per && base + j < nv ? dt[(size_t)(base + j) * nh] : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (j < per) {
+      dt_s[base + j] = dv[j];
+      s = __fadd_rn(s, __fmul_rn(A, dv[j]));
+      acs_s[base + j] = s;
+    }
+  }
+  float incl = s;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl = __fadd_rn(incl, o);
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (j < per) acs_s[base + j] = __fadd_rn(acs_s[base + j], excl);
+}
+
+// cp.async of rows [t_lo, t_lo + ROWS) of a [.., W] bf16 matrix (row
+// stride `stride` elements, `src` at the chunk's first row) into a padded
+// tile, by the block's NTH threads; rows at or past nv zero-filled.
+template <int W, int NTH, int ROWS = kT>
+__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
+                                          size_t stride, int t_lo, int nv) {
+  constexpr int V = W / 8;                 // 16-byte pieces a row
+  for (int i = threadIdx.x; i < ROWS * V; i += NTH) {
     const int r = i / V, v = i % V, t = t_lo + r;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (t < valid)
-      u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)t * DS) + v);
-    uint32_t* d = dst + r * W + v * 4;
-    d[0] = u.x;
-    d[1] = u.y;
-    d[2] = u.z;
-    d[3] = u.w;
+    const bool ok = t < nv;
+    cp_async16(dst + r * (W + 8) + v * 8,
+               ok ? src + (size_t)t * stride + v * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1. The chunk's own state s_c [DS, HP] per head, and its decay.
+
+template <int HP, int DS>
+__global__ void __launch_bounds__(32 * state_warps(DS), 2)
+chunk_state_kernel(Args a) {
+  using L = Tiles<HP, DS>;
+  constexpr int BP = L::BP, NTH = 32 * state_warps(DS);
+  extern __shared__ unsigned char smem_raw[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_align(smem_raw));
+  float* dt_s = reinterpret_cast<float*>(ring + 2 * L::kSStage);
+  float* acs_s = dt_s + kHG * kMaxQ;                  // [kHG][kMaxQ] each
+  float* w_s = acs_s + kHG * kMaxQ;
+
+  const int c = blockIdx.x, hg0 = blockIdx.y * kHG, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nh = a.nh, t0 = c * a.Q, nv = min(a.Q, a.S - t0);
+  const int Qp = (a.Q + kT - 1) / kT * kT, nkt = (nv + kT - 1) / kT;
+  const size_t row0 = (size_t)b * a.S + t0;
+  const int heads = min(kHG, nh - hg0);
+
+  auto load = [&](int kt) {
+    uint16_t* st = ring + (kt & 1) * L::kSStage;
+    load_tile<DS, NTH>(st, a.Bm + row0 * DS, DS, kt * kT, nv);
+    for (int h = 0; h < heads; ++h)
+      load_x_swz<HP, NTH>(st + L::kB + h * L::kXS,
+                          a.x + (row0 * nh + hg0 + h) * HP, (size_t)nh * HP,
+                          kt * kT, nv);
+    cp_async_commit();
+  };
+  load(0);
+
+  if (warp < heads) {
+    const int head = hg0 + warp;
+    chunk_scan(a.dt + row0 * nh + head, nh, nv, -expf(a.A_log[head]), Qp,
+               dt_s + warp * kMaxQ, acs_s + warp * kMaxQ, lane);
+    __syncwarp();
+    const float end = acs_s[warp * kMaxQ + nv - 1];
+    for (int t = lane; t < Qp; t += 32)
+      w_s[warp * kMaxQ + t] =
+          expf(end - acs_s[warp * kMaxQ + t]) * dt_s[warp * kMaxQ + t];
+    if (lane == 0)
+      a.decay[((size_t)b * a.nc + c) * nh + head] = expf(end);
+  }
+
+  // warp w: state rows [16 w, 16 w + 16) (rows past DS multiply zeros),
+  // all 64 columns (columns past HP meet x's zero-filled columns)
+  float acc[kHG][8][4];
+#pragma unroll
+  for (int h = 0; h < kHG; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
+  const bool rows_in = warp * 16 < DS;
+  // this lane's ldmatrix.trans row of the A operand B^T ([key][ds] tile)
+  const int a_row = (lane >> 4) * 8 + (lane & 7);
+  const int a_col = warp * 16 + ((lane >> 3) & 1) * 8;
+  uint32_t ahi[2][kHG][4], alo[2][kHG][4];   // two k16 steps' A in flight
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();                       // tile kt and the scalars ready
+    const uint16_t* bt = ring + (kt & 1) * L::kSStage;
+#pragma unroll
+    for (int kk = 0; kk < kT; kk += 16) {
+      const int buf = (kk / 16) & 1;
+      uint32_t bf[4] = {0u, 0u, 0u, 0u};   // B^T, exact bf16
+      if (rows_in) ldmatrix_x4_trans(bf, bt + (kk + a_row) * BP + a_col);
+      const int k0 = kt * kT + kk + tig * 2;
+#pragma unroll
+      for (int h = 0; h < kHG; ++h) {
+        const float* w = w_s + h * kMaxQ + k0;
+        const float w0 = w[0], w1 = w[1], w8 = w[8], w9 = w[9];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {      // (B o w)^T as hi + lo
+          const float wl = r < 2 ? w0 : w8, wh = r < 2 ? w1 : w9;
+          split_bf16(bf16_lo(bf[r]) * wl, bf16_hi(bf[r]) * wh, ahi[buf][h][r],
+                     alo[buf][h][r]);
+        }
+        wg_hold(ahi[buf][h]);
+        wg_hold(alo[buf][h]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int h = 0; h < kHG; ++h) {
+        if (h >= heads) break;
+        const uint64_t xd = desc_n128(bt + L::kB + h * L::kXS + kk * kXW);
+        wgmma_rs(acc[h], ahi[buf][h], xd);
+        wgmma_rs(acc[h], alo[buf][h], xd);
+      }
+      wg_commit();
+      wg_wait<1>();                        // the step before is done
+    }
+    wg_wait<0>();
+    __syncthreads();                       // stage kt & 1 is refilled next
+  }
+#pragma unroll
+  for (int h = 0; h < kHG; ++h) wg_hold(acc[h]);
+
+#pragma unroll
+  for (int h = 0; h < kHG; ++h) {
+    if (h >= heads || !rows_in) break;
+    float* s = a.states +
+               (((size_t)b * a.nc + c) * nh + hg0 + h) * (size_t)(DS * HP);
+    const int n = warp * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = j * 8 + tig * 2;
+      if (p >= HP) break;
+      *reinterpret_cast<float2*>(s + n * HP + p) =
+          make_float2(acc[h][j][0], acc[h][j][1]);
+      *reinterpret_cast<float2*>(s + (n + 8) * HP + p) =
+          make_float2(acc[h][j][2], acc[h][j][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. The state pass: per cell, h = decay_c h + s_c in chunk order. s_c is
+// overwritten by the chunk's incoming state h_{c-1}, split for the output
+// kernel's tensor cores: each thread's 8 cells (32 bytes) become 8 bf16 hi
+// then 8 bf16 lo in the same 32 bytes.
+
+constexpr int kBatch = 8;                  // chunks whose loads are in flight
+
+template <int HP, int DS>
+__global__ void __launch_bounds__(kThreads) state_pass_kernel(Args a) {
+  constexpr int kCells8 = DS * HP / 8;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= kCells8) return;
+  const int head = blockIdx.y, b = blockIdx.z, nh = a.nh, nc = a.nc;
+  const size_t hoff = (((size_t)b * nh + head) * kCells8 + i) * 2;
+  float4 h[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                 make_float4(0.f, 0.f, 0.f, 0.f)};
+  if (a.h0 != nullptr) {
+    h[0] = reinterpret_cast<const float4*>(a.h0)[hoff];
+    h[1] = reinterpret_cast<const float4*>(a.h0)[hoff + 1];
+  }
+  float4* s = reinterpret_cast<float4*>(a.states) +
+              (((size_t)b * nc * nh + head) * kCells8 + i) * 2;
+  const float* dec = a.decay + (size_t)b * nc * nh + head;
+  const size_t step = (size_t)nh * kCells8 * 2;  // float4s, chunk to chunk
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    const int n = min(kBatch, nc - c0);
+    float4 sv[kBatch][2];
+    float dv[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (j < n) {
+        sv[j][0] = s[(c0 + j) * step];
+        sv[j][1] = s[(c0 + j) * step + 1];
+        dv[j] = dec[(size_t)(c0 + j) * nh];
+      }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (j < n) {
+        uint32_t hi[4], lo[4];
+        split_bf16(h[0].x, h[0].y, hi[0], lo[0]);
+        split_bf16(h[0].z, h[0].w, hi[1], lo[1]);
+        split_bf16(h[1].x, h[1].y, hi[2], lo[2]);
+        split_bf16(h[1].z, h[1].w, hi[3], lo[3]);
+        uint4* p = reinterpret_cast<uint4*>(s + (c0 + j) * step);
+        p[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        p[1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          h[u].x = dv[j] * h[u].x + sv[j][u].x;
+          h[u].y = dv[j] * h[u].y + sv[j][u].y;
+          h[u].z = dv[j] * h[u].z + sv[j][u].z;
+          h[u].w = dv[j] * h[u].w + sv[j][u].w;
+        }
+      }
+  }
+  reinterpret_cast<float4*>(a.h)[hoff] = h[0];
+  reinterpret_cast<float4*>(a.h)[hoff + 1] = h[1];
+}
+
+// ---------------------------------------------------------------------------
+// 3. y of a 128-query tile of a chunk, for a pair of heads: two
+// warpgroups, each 64 queries (warp w owns queries [16 w, 16 w + 16) of the
+// tile); two blocks an SM.
+
+template <int HP, int DS>
+__global__ void __launch_bounds__(32 * kOutWarps, 2)
+chunk_output_kernel(Args a) {
+  using L = Tiles<HP, DS>;
+  constexpr int BP = L::BP, NTH = 32 * kOutWarps, KD = DS / 16;
+  constexpr int kPlane = DS * kXW;           // elements of one h plane
+  extern __shared__ unsigned char smem_raw[];
+  uint16_t* cs = reinterpret_cast<uint16_t*>(smem_align(smem_raw));
+  uint16_t* ring = cs + kQT * BP;                          // 2 stages
+  float* dt_s = reinterpret_cast<float*>(ring + 2 * L::kSStage);
+  float* acs_s = dt_s + kHG * kMaxQ;
+  float* w_s = acs_s + kHG * kMaxQ;
+
+  const int Qp = (a.Q + kT - 1) / kT * kT, nqt = (a.Q + kQT - 1) / kQT;
+  const int c = blockIdx.x / nqt, qt = blockIdx.x % nqt;
+  const int hg0 = blockIdx.y * kHG, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3, m4 = lane >> 3, r8 = lane & 7;
+  const int nh = a.nh, t0 = c * a.Q, nv = min(a.Q, a.S - t0);
+  const int q0 = qt * kQT;
+  if (q0 >= nv) return;                    // the tail chunk's empty tiles
+  // key tiles up to the last valid query's; the warpgroup's diagonal one
+  // (its 64 queries' own keys), and the warp's 16-key block on it
+  const int nkt = (min(q0 + kQT, nv) + kT - 1) / kT;
+  const int kdiag = (q0 + (warp / 4) * 64) / kT, jdiag = warp % 4;
+  const size_t row0 = (size_t)b * a.S + t0;
+  const int heads = min(kHG, nh - hg0);
+  const bool state_in = c > 0 || a.h0 != nullptr;
+
+  auto load = [&](int kt) {
+    uint16_t* st = ring + (kt & 1) * L::kSStage;
+    load_tile<DS, NTH>(st, a.Bm + row0 * DS, DS, kt * kT, nv);
+    for (int h = 0; h < heads; ++h)
+      load_x_swz<HP, NTH>(st + L::kB + h * L::kXS,
+                          a.x + (row0 * nh + hg0 + h) * HP, (size_t)nh * HP,
+                          kt * kT, nv);
+    cp_async_commit();
+  };
+  load_tile<DS, NTH, kQT>(cs, a.Cm + row0 * DS, DS, q0, nv);
+  load(0);
+
+  if (warp < heads) {
+    const int head = hg0 + warp;
+    const float* acs = acs_s + warp * kMaxQ;
+    chunk_scan(a.dt + row0 * nh + head, nh, nv, -expf(a.A_log[head]), Qp,
+               dt_s + warp * kMaxQ, acs_s + warp * kMaxQ, lane);
+    __syncwarp();
+    // key k's weight against the end of its 16-key block: below the
+    // diagonal, exp(acs_q - acs_k) dt_k = exp(acs_q - acs_m) w_k with m =
+    // k | 15, both exponents <= 0 (acs falls along the chunk)
+    for (int t = lane; t < Qp; t += 32)
+      w_s[warp * kMaxQ + t] =
+          expf(acs[t | 15] - acs[t]) * dt_s[warp * kMaxQ + t];
+  }
+
+  float y[kHG][8][4];                      // 64 columns; past HP unused
+#pragma unroll
+  for (int h = 0; h < kHG; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[h][j][e] = 0.f;
+
+  const int qr = q0 + warp * 16 + gid;     // this lane's rows: qr, qr + 8
+  // this lane's ldmatrix address in the C tile (the A operand)
+  const uint16_t* c_lane = cs + (warp * 16 + (m4 & 1) * 8 + r8) * BP +
+                           (m4 >> 1) * 8;
+  uint32_t g[kHG][2][4];                   // a key block's G, hi and lo
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (kt <= kdiag) {                     // uniform in the warpgroup
+      const uint16_t* bt = ring + (kt & 1) * L::kSStage;
+#pragma unroll 1
+      for (int jb = 0; jb < kT / 16; ++jb) {  // keys [16 jb, 16 jb + 16)
+        const int k0 = kt * kT + jb * 16;     // chunk-local
+        const int mode = kt < kdiag || jb < jdiag ? 0    // below the diagonal
+                         : jb == jdiag ? 1 : 2;          // on it, above it
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        if (mode < 2) {                    // C B^T, both operands exact
+#pragma unroll
+          for (int kd = 0; kd < KD; ++kd) {
+            uint32_t ca[4], bb[4];
+            ldmatrix_x4(ca, c_lane + kd * 16);
+            ldmatrix_x4(bb, bt + (jb * 16 + (m4 >> 1) * 8 + r8) * BP +
+                                kd * 16 + (m4 & 1) * 8);
+            mma_bf16(sc[0], ca, bb);
+            mma_bf16(sc[1], ca, bb + 2);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < kHG; ++h) {
+          const float* acs = acs_s + h * kMaxQ;
+          const float* dts = dt_s + h * kMaxQ;
+          const float aq[2] = {acs[qr], acs[qr + 8]};
+          float v[4][2];                   // A register r: rows qr (+8 for r
+                                           // odd), keys of n8 tile r / 2
+          if (mode == 0) {
+            const float f[2] = {expf(aq[0] - acs[k0 + 15]),
+                                expf(aq[1] - acs[k0 + 15])};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int row = r & 1, nt = r >> 1;
+              const float2 w2 = *reinterpret_cast<const float2*>(
+                  w_s + h * kMaxQ + k0 + nt * 8 + tig * 2);
+              v[r][0] = sc[nt][row * 2] * f[row] * w2.x;
+              v[r][1] = sc[nt][row * 2 + 1] * f[row] * w2.y;
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int row = r & 1, nt = r >> 1;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int k = k0 + nt * 8 + tig * 2 + e;
+                v[r][e] = mode == 2 || k > qr + row * 8
+                              ? 0.f
+                              : sc[nt][row * 2 + e] *
+                                    expf(aq[row] - acs[k]) * dts[k];
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            split_bf16(v[r][0], v[r][1], g[h][0][r], g[h][1][r]);
+          wg_hold(g[h][0]);
+          wg_hold(g[h][1]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int h = 0; h < kHG; ++h) {
+          if (h >= heads) break;
+          const uint64_t xd =
+              desc_n128(bt + L::kB + h * L::kXS + jb * 16 * kXW);
+          wgmma_rs(y[h], g[h][0], xd);
+          wgmma_rs(y[h], g[h][1], xd);
+        }
+        wg_commit();
+        wg_wait<0>();                      // g is rewritten next
+      }
+    }
+    __syncthreads();                       // stage kt & 1 is refilled next
+  }
+
+  // + exp(acs_q) C_q h_{c-1}: the chunk's incoming state, as the state pass
+  // left it (each 8 cells: 8 bf16 hi, then 8 bf16 lo), into two swizzled
+  // planes a head, in the ring
+  if (state_in) {
+    for (int h = 0; h < heads; ++h) {
+      const uint16_t* src = reinterpret_cast<const uint16_t*>(
+          a.states + (((size_t)b * a.nc + c) * nh + hg0 + h) *
+                         (size_t)(DS * HP));
+      uint16_t* dst = ring + h * L::kSStage;
+      for (int i = tid; i < DS * 16; i += NTH) {
+        const int r = i >> 4, v = (i >> 1) & 7, lo = i & 1;
+        const bool ok = v < HP / 8;
+        cp_async16(dst + lo * kPlane + r * kXW + ((v ^ (r & 7)) << 3),
+                   ok ? src + (r * HP + v * 8) * 2 + lo * 8 : src,
+                   ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < kHG; ++h) {
+      if (h >= heads) break;
+      const uint16_t* hp0 = ring + h * L::kSStage;
+      float ch[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ch[j][e] = 0.f;
+      uint32_t ca[2][4];
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        ldmatrix_x4(ca[kd & 1], c_lane + kd * 16);
+        wg_hold(ca[kd & 1]);
+        wg_fence();
+        const uint16_t* hp = hp0 + kd * 16 * kXW;
+        wgmma_rs(ch, ca[kd & 1], desc_n128(hp));
+        wgmma_rs(ch, ca[kd & 1], desc_n128(hp + kPlane));
+        wg_commit();
+        wg_wait<1>();
+      }
+      wg_wait<0>();
+      wg_hold(ch);
+      wg_hold(y[h]);
+      const float* acs = acs_s + h * kMaxQ;
+      const float e0 = expf(acs[qr]), e1 = expf(acs[qr + 8]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[h][j][0] += e0 * ch[j][0];
+        y[h][j][1] += e0 * ch[j][1];
+        y[h][j][2] += e1 * ch[j][2];
+        y[h][j][3] += e1 * ch[j][3];
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kHG; ++h) wg_hold(y[h]);
+
+#pragma unroll
+  for (int h = 0; h < kHG; ++h) {
+    if (h >= heads) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = qr + half * 8;
+      if (q >= nv) continue;
+      uint16_t* yr = a.y + ((row0 + q) * nh + hg0 + h) * HP + tig * 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j * 8 >= HP) break;
+        *reinterpret_cast<uint32_t*>(yr + j * 8) =
+            pack_bf16(y[h][j][half * 2], y[h][j][half * 2 + 1]);
+      }
+    }
   }
 }
 
 template <int HP, int DS>
-__global__ void __launch_bounds__(kThreads, 1) ssd_kernel(Args a) {
-  using L = Layout<HP, DS>;
-  constexpr int W = L::W, GW = L::GW;
-  constexpr int PJ = HP / kGrid;          // channels per thread
-  constexpr int NI = DS / kGrid;          // state rows per thread
-  extern __shared__ float smem[];
-  const int Q = a.Q, Qp = (Q + kT - 1) / kT * kT;
-  float* h_s = smem;                                   // [DS][HP]
-  float* xd_s = h_s + DS * HP;                         // [Qp][HP]
-  uint32_t* B_s = reinterpret_cast<uint32_t*>(xd_s + Qp * HP);  // [Qp][W]
-  uint32_t* C_s = B_s + Qp * W;                        // [kT][W]
-  float* G_s = reinterpret_cast<float*>(C_s + kT * W); // [kT][GW]
-  float* dt_s = G_s + kT * GW;                         // [Qp]
-  float* acs_s = dt_s + Qp;                            // [Qp]
-  float* eacs_s = acs_s + Qp;                          // exp(acs)
-  float* dec_s = eacs_s + Qp;                          // exp(acs_end - acs)
+constexpr int state_smem() {
+  return 1024 + 2 * Tiles<HP, DS>::kSStage * 2 + Tiles<HP, DS>::kScalars;
+}
 
-  const int head = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int ty = tid / kGrid, tx = tid % kGrid;
-  const int S = a.S, nh = a.nh;
-  const float A = -expf(a.A_log[head]);
-  const size_t hoff = ((size_t)b * nh + head) * DS * HP;
-
-  for (int i = tid; i < DS * HP; i += kThreads)
-    h_s[i] = a.h0 != nullptr ? a.h0[hoff + i] : 0.f;
-
-  const int n_chunks = (S + Q - 1) / Q;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * Q;
-    const int nv = min(Q, S - t0);                     // valid steps
-    const size_t row0 = (size_t)b * S + t0;            // first (b, t) row
-
-    // 1. the chunk: dt, xd = x * dt (fp32), B; zero past the valid steps
-    for (int t = tid; t < Qp; t += kThreads)
-      dt_s[t] = t < nv ? a.dt[(row0 + t) * nh + head] : 0.f;
-    load_rows<DS>(B_s, a.Bm + row0 * DS, 0, Qp, nv);
-    __syncthreads();
-    for (int i = tid; i < Qp * (HP / 8); i += kThreads) {
-      const int t = i / (HP / 8), v = i % (HP / 8);
-      float* d = xd_s + t * HP + v * 8;
-      if (t < nv) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            a.x + ((row0 + t) * nh + head) * HP) + v);
-        const float s = dt_s[t];
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          d[2 * j] = lo_bf16(w[j]) * s;
-          d[2 * j + 1] = hi_bf16(w[j]) * s;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) d[j] = 0.f;
-      }
-    }
-    // the chunk's cumulative log-decay: lane-local sums, then a warp scan
-    if (tid < 32) {
-      const int per = Qp / 32, base = tid * per;
-      float s = 0.f;
-      for (int j = 0; j < per; ++j) {
-        s += A * dt_s[base + j];
-        acs_s[base + j] = s;
-      }
-      float incl = s;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, d);
-        if (tid >= d) incl += o;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      for (int j = 0; j < per; ++j) acs_s[base + j] += excl;
-    }
-    __syncthreads();
-    const float acs_end = acs_s[nv - 1];
-    for (int t = tid; t < Qp; t += kThreads) {
-      eacs_s[t] = expf(acs_s[t]);
-      dec_s[t] = expf(acs_end - acs_s[t]);
-    }
-    __syncthreads();
-
-    // 2. y, one 64-step query tile at a time
-    for (int q0 = 0; q0 < nv; q0 += kT) {
-      load_rows<DS>(C_s, a.Cm + row0 * DS, q0, kT, nv);
-      __syncthreads();
-      float yacc[kRows][PJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) yacc[i][j] = 0.f;
-
-      for (int k0 = 0; k0 <= q0; k0 += kT) {
-        // scores of the tile, masked, times the decay
-        float g[kRows][kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) g[i][j] = 0.f;
-#pragma unroll 4
-        for (int w = 0; w < DS / 2; ++w) {
-          float c0[kRows], c1[kRows], b0[kRows], b1[kRows];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const uint32_t cw = C_s[(ty + kGrid * i) * W + w];
-            const uint32_t bw = B_s[(k0 + tx + kGrid * i) * W + w];
-            c0[i] = lo_bf16(cw);
-            c1[i] = hi_bf16(cw);
-            b0[i] = lo_bf16(bw);
-            b1[i] = hi_bf16(bw);
-          }
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-              g[i][j] = fmaf(c0[i], b0[j], g[i][j]);
-              g[i][j] = fmaf(c1[i], b1[j], g[i][j]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int q = q0 + ty + kGrid * i;
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            const int k = k0 + tx + kGrid * j;
-            G_s[(ty + kGrid * i) * GW + tx + kGrid * j] =
-                k <= q ? g[i][j] * expf(acs_s[q] - acs_s[k]) : 0.f;
-          }
-        }
-        __syncthreads();
-        // y += G xd over the tile's valid keys (xd is zero past them)
-        const int kend = min(kT, nv - k0);
-        for (int kk = 0; kk < kend; ++kk) {
-          float gv[kRows], xv[PJ];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            gv[i] = G_s[(ty + kGrid * i) * GW + kk];
-#pragma unroll
-          for (int j = 0; j < PJ; ++j)
-            xv[j] = xd_s[(k0 + kk) * HP + tx + kGrid * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < PJ; ++j)
-              yacc[i][j] = fmaf(gv[i], xv[j], yacc[i][j]);
-        }
-        __syncthreads();
-      }
-
-      // + exp(acs_q) C_q h, with the chunk's incoming h
-      float ch[kRows][PJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) ch[i][j] = 0.f;
-#pragma unroll 2
-      for (int w = 0; w < DS / 2; ++w) {
-        float c0[kRows], c1[kRows], h0v[PJ], h1v[PJ];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const uint32_t cw = C_s[(ty + kGrid * i) * W + w];
-          c0[i] = lo_bf16(cw);
-          c1[i] = hi_bf16(cw);
-        }
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          h0v[j] = h_s[(2 * w) * HP + tx + kGrid * j];
-          h1v[j] = h_s[(2 * w + 1) * HP + tx + kGrid * j];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) {
-            ch[i][j] = fmaf(c0[i], h0v[j], ch[i][j]);
-            ch[i][j] = fmaf(c1[i], h1v[j], ch[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int q = q0 + ty + kGrid * i;
-        if (q >= nv) continue;
-        uint16_t* yrow = a.y + ((row0 + q) * nh + head) * HP;
-        const float e = eacs_s[q];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j)
-          yrow[tx + kGrid * j] = __bfloat16_as_ushort(
-              __float2bfloat16_rn(yacc[i][j] + e * ch[i][j]));
-      }
-      __syncthreads();              // C_s and G_s are rewritten next tile
-    }
-
-    // 3. h' = exp(acs_end) h + sum_k (B_k exp(acs_end - acs_k)) xd_k^T; every
-    // query tile has read h (the barrier above), each thread owns its cells
-    float acc[NI][PJ];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < nv; ++k) {
-      const float dk = dec_s[k];
-      float bn[NI], xv[PJ];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int n = ty + kGrid * i;
-        const uint32_t bw = B_s[k * W + n / 2];
-        bn[i] = ((n & 1) ? hi_bf16(bw) : lo_bf16(bw)) * dk;
-      }
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) xv[j] = xd_s[k * HP + tx + kGrid * j];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(bn[i], xv[j], acc[i][j]);
-    }
-    const float e_end = expf(acs_end);
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        float* cell = h_s + (ty + kGrid * i) * HP + tx + kGrid * j;
-        *cell = e_end * *cell + acc[i][j];
-      }
-    __syncthreads();                // the next chunk overwrites the tiles
-  }
-
-  for (int i = tid; i < DS * HP; i += kThreads) a.h[hoff + i] = h_s[i];
+template <int HP, int DS>
+constexpr int output_smem() {
+  return state_smem<HP, DS>() + kQT * Tiles<HP, DS>::BP * 2;
 }
 
 template <int HP, int DS>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  using L = Layout<HP, DS>;
-  const int Qp = (a.Q + kT - 1) / kT * kT;
-  const size_t bytes = (size_t)L::words(Qp) * 4;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<HP, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::words(kMaxQ) * 4);
+    cudaError_t e = cudaFuncSetAttribute(
+        chunk_state_kernel<HP, DS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, state_smem<HP, DS>());
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(chunk_output_kernel<HP, DS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               output_smem<HP, DS>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid(a.nh, B);
-  ssd_kernel<HP, DS><<<grid, kThreads, bytes, stream>>>(a);
+  const int groups = (a.nh + kHG - 1) / kHG;
+  const int nqt = (a.Q + kQT - 1) / kQT;
+  chunk_state_kernel<HP, DS><<<dim3(a.nc, groups, B),
+                               32 * state_warps(DS),
+                               state_smem<HP, DS>(), stream>>>(a);
+  state_pass_kernel<HP, DS><<<dim3((DS * HP / 8 + kThreads - 1) / kThreads,
+                                   a.nh, B), kThreads, 0, stream>>>(a);
+  chunk_output_kernel<HP, DS><<<dim3(nqt * a.nc, groups, B),
+                                32 * kOutWarps, output_smem<HP, DS>(),
+                                stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, Bm, Cm 16-byte aligned and contiguous; 1 <= Q <= 256; h0 may be null;
-// B, nh >= 1.
+// B, nh >= 1; workspace holds B * nc * nh * (ds * hp + 1) floats, nc =
+// ceil(S / Q): the chunk states, then the chunk decays.
 extern "C" int ssd_scan_bf16(const void* x, const float* dt,
                              const float* A_log, const void* Bm,
                              const void* Cm, const float* h0, void* y,
-                             float* h, int B, int S, int nh, int hp, int ds,
-                             int Q, void* stream) {
+                             float* h, float* workspace, int B, int S,
+                             int nh, int hp, int ds, int Q, void* stream) {
   if (Q < 1 || Q > kMaxQ) return -1;
   Args a{};
   a.x = (const uint16_t*)x;
@@ -382,6 +743,9 @@ extern "C" int ssd_scan_bf16(const void* x, const float* dt,
   a.S = S;
   a.nh = nh;
   a.Q = Q;
+  a.nc = (S + Q - 1) / Q;
+  a.states = workspace;
+  a.decay = workspace + (size_t)B * a.nc * nh * ds * hp;
   const cudaStream_t s = (cudaStream_t)stream;
   // mamba2-370m's widths, and its reduced config's
   if (hp == 64 && ds == 128) return launch<64, 128>(a, B, s);

@@ -3,17 +3,26 @@ PyTorch version.
 
 ``ssd_scan`` replaces the JAX package's Pallas TPU kernel
 (``src/repro/kernels/ssd_scan/ssd_scan.py``: ``ssd_scan`` /
-``_ssd_kernel``) with the hand-written CUDA kernel in
-``csrc/ssd_scan.cu``; that file's header gives its bound (bytes: x and y
+``_ssd_kernel``) with the hand-written CUDA kernels in
+``csrc/ssd_scan.cu``; that file's header gives the bound (bytes: x and y
 dominate) and what the design does about it. The contract is the model
 function's, ``src/repro/models/ssm.py::ssd_chunked``, in the model layout:
 ``a = -exp(A_log) * dt`` and ``xd = x * dt`` are formed in fp32 inside, the
 chunk is ``Q = min(chunk, S)``, and the ragged tail behaves as the
 reference's ``dt = 0`` padding.
 
+The kernels are chunk-parallel: every chunk's own state and decay at once,
+then a pass over the chunk states in chunk order (elementwise per state
+cell), then every chunk's output from its incoming state. The products run
+on bf16 tensor cores, an fp32 operand split into bf16 hi + lo.
+``ssd_scan_chunked_plain`` is that algorithm in plain PyTorch, with the
+same split, for the tests: no path calls it.
+
 The wrapper runs the plain version only for tensors that lie on the CPU.
-For a CUDA tensor it launches the kernel or raises: it never falls back. It
-counts its launches in ``ssd_scan.launches``.
+For a CUDA tensor it launches the kernels or raises: it never falls back.
+It counts one launch per call in ``ssd_scan.launches``, however many CUDA
+kernels the call runs (three), and allocates y, h and one fp32 workspace
+for the chunk states and decays.
 """
 from __future__ import annotations
 
@@ -34,8 +43,8 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                  p]
+    lib.ssd_scan_bf16.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                  i, p]
     lib.ssd_scan_bf16.restype = i
     return lib
 
@@ -84,9 +93,70 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y.to(x.dtype), h
 
 
+def _split(v: torch.Tensor) -> torch.Tensor:
+    """v (fp32) as the kernels multiply it: bf16 hi + bf16 lo, summed back
+    in fp32 (exact: lo holds the 8 bits after hi's)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_scan_chunked_plain(x: torch.Tensor, dt: torch.Tensor,
+                           A_log: torch.Tensor, Bm: torch.Tensor,
+                           Cm: torch.Tensor,
+                           h0: Optional[torch.Tensor] = None,
+                           chunk: int = 256
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernels' chunk-parallel algorithm in plain PyTorch, with
+    their precision scheme, for the tests (no path calls it):
+
+    1. per chunk at once: acs (the chunk's own cumulative sum), the decay
+       exp(acs_end) and the chunk's own state s_c = (B o w)^T x with w_k =
+       exp(acs_end - acs_k) dt_k, the fp32 B o w split into bf16 hi + lo;
+    2. in chunk order: h_c = exp(acs_end) h_{c-1} + s_c;
+    3. per chunk at once: y = (C B^T o L o dt) x + exp(acs) C h_{c-1}, the
+       fp32 operands (C B^T o L o dt, h_{c-1}) split into hi + lo; C B^T
+       and x, C are exact in bf16.
+    Same arguments and results as ``ssd_scan_plain``."""
+    Bb, S, nh, hp = x.shape
+    ds = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f = torch.float32
+
+    def chunks(t):                     # [Bb, S, ...] -> [Bb, nc, Q, ...]
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((Bb, nc, Q) + tuple(t.shape[2:]))
+    xc, dtc = chunks(x.float()), chunks(dt.float())
+    Bc, Cc = chunks(Bm.float()), chunks(Cm.float())
+    acs = torch.cumsum(-torch.exp(A_log.float()) * dtc, dim=2)  # [b,c,Q,nh]
+    end = acs[:, :, -1:]                                       # [b,c,1,nh]
+    w = torch.exp(end - acs) * dtc                             # [b,c,Q,nh]
+    bw = _split(Bc[..., None, :] * w[..., None])               # [b,c,Q,nh,ds]
+    s = torch.einsum("bcknd,bcknp->bcndp", bw, xc)             # [b,c,nh,ds,hp]
+    decay = torch.exp(end[:, :, 0])                            # [b,c,nh]
+    h = (torch.zeros((Bb, nh, ds, hp), dtype=f, device=x.device)
+         if h0 is None else h0.float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c, :, None, None] * h + s[:, c]
+    h_in = torch.stack(h_in, dim=1)                            # [b,c,nh,ds,hp]
+    cb = torch.einsum("bcqd,bckd->bcqk", Cc, Bc)               # exact products
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]       # [b,c,q,k,nh]
+    g = cb[..., None] * torch.exp(diff) * dtc[:, :, None, :, :]
+    g = _split(torch.where(mask[None, None, :, :, None], g, 0.0))
+    y = torch.einsum("bcqkn,bcknp->bcqnp", g, xc)
+    ch = torch.einsum("bcqd,bcndp->bcqnp", Cc, _split(h_in))
+    y = y + torch.exp(acs)[..., None] * ch
+    y = y.reshape(Bb, nc * Q, nh, hp)[:, :S]
+    return y.to(x.dtype), h
+
+
 def _check_cuda(x, dt, A_log, Bm, Cm, h0) -> None:
     """What the CUDA kernel takes: bf16 x/B/C, fp32 dt/A_log/h0, all
-    contiguous on one CUDA device, x/B/C on 16-byte boundaries."""
+    contiguous on one CUDA device, x/B/C/h0 on 16-byte boundaries."""
     for t, want in ((x, torch.bfloat16), (Bm, torch.bfloat16),
                     (Cm, torch.bfloat16), (dt, torch.float32),
                     (A_log, torch.float32), (h0, torch.float32)):
@@ -100,8 +170,8 @@ def _check_cuda(x, dt, A_log, Bm, Cm, h0) -> None:
         if not t.is_contiguous():
             raise ValueError("ssd_scan: the CUDA kernel takes contiguous "
                              "tensors")
-    for t in (x, Bm, Cm):
-        if t.data_ptr() % 16:
+    for t in (x, Bm, Cm, h0):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError("ssd_scan: tensor not on a 16-byte boundary")
 
 
@@ -133,10 +203,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                          f"{Bb} x {nh} heads")
     y = torch.empty_like(x)
     h = torch.empty((Bb, nh, ds, hp), dtype=torch.float32, device=x.device)
+    nc = -(-S // Q)
+    # the chunk states [Bb, nc, nh, ds, hp], then the decays [Bb, nc, nh]
+    ws = torch.empty(Bb * nc * nh * (ds * hp + 1), dtype=torch.float32,
+                     device=x.device)
     err = _lib().ssd_scan_bf16(
         x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h.data_ptr(), Bb, S, nh, hp, ds, Q,
+        h.data_ptr(), ws.data_ptr(), Bb, S, nh, hp, ds, Q,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "

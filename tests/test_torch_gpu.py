@@ -140,7 +140,8 @@ def _close_pair(got, want):
 @pytest.mark.parametrize("which", [0, 1, 2, 3])
 def test_ssd_scan_matches_plain_on_card(hopper, which):
     """The ragged cases of ``repro_torch.kernels.cases``: a 232-step tail,
-    S < chunk, a non-zero incoming state, the reduced widths."""
+    S < chunk, a non-zero incoming state, the reduced widths (the chunk
+    edges are in ``test_redesigned_kernels_match_plain_on_card``)."""
     entry = _entry("ssd_scan")
     gen = torch.Generator(device="cuda").manual_seed(which)
     args = entry["inputs"](_ragged("ssd_scan")[which], gen)
@@ -167,22 +168,37 @@ def test_ssd_scan_raises_instead_of_falling_back(hopper):
         entry["wrapper"](x, dt, A_log.cpu(), Bm, Cm, h0, chunk)
 
 
-# -- the redesigned kernels: flash_decode (split S) and gmm (TMA ring) -----
+# -- the redesigned kernels: flash_decode (split S), gmm and swiglu_gmm (TMA
+# ring), ssd_scan (chunk-parallel) -------------------------------------------
 
-REDESIGNED = ("flash_decode", "gmm")
+REDESIGNED = ("flash_decode", "gmm", "swiglu_gmm", "ssd_scan")
+
+# where each kernel's edge cases start among its ragged cases
+_FIRST_EDGE = dict(flash_decode=3, gmm=3, swiglu_gmm=3, ssd_scan=4)
 
 
 def _edge_cases(name):
     """The ragged cases that reach the new kernels' edges (``cases.py``):
     flash_decode's 8 splits of S = 5000 with windows from inside splits and
-    a row that ends in split 0; gmm's C = 13 and 64 at K = 14336, a K of
-    160 (a short last tile), K and N not multiples of 8."""
-    return _ragged(name)[3:]
+    a row that ends in split 0; gmm's and swiglu_gmm's C = 13 and 64 at the
+    served K and N, a K of 160 (a short last tile), K and N not multiples
+    of 8; ssd_scan's single chunk with an incoming state and a last chunk
+    of one step."""
+    return _ragged(name)[_FIRST_EDGE[name]:]
+
+
+def _close_any(got, want):
+    if isinstance(got, tuple):
+        _close_pair(got, want)
+    else:
+        _close(got, want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name, which", [("flash_decode", 0), ("gmm", 0),
-                                         ("gmm", 1), ("gmm", 2), ("gmm", 3)])
+@pytest.mark.parametrize("name, which", [
+    ("flash_decode", 0), ("gmm", 0), ("gmm", 1), ("gmm", 2), ("gmm", 3),
+    ("swiglu_gmm", 0), ("swiglu_gmm", 1), ("swiglu_gmm", 2),
+    ("swiglu_gmm", 3), ("ssd_scan", 0), ("ssd_scan", 1)])
 def test_redesigned_kernels_match_plain_on_card(hopper, name, which):
     entry = _entry(name)
     gen = torch.Generator(device="cuda").manual_seed(which)
@@ -191,15 +207,16 @@ def test_redesigned_kernels_match_plain_on_card(hopper, name, which):
     got = entry["wrapper"](*args)
     torch.cuda.synchronize()
     assert launches()[name] == 1
-    _close(got, entry["plain"](*args))
+    _close_any(got, entry["plain"](*args))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", REDESIGNED)
 @pytest.mark.parametrize("label", ["served", "long", "ragged"])
 def test_redesigned_kernels_are_bitwise_equal_run_to_run(hopper, name, label):
-    """No atomics, and flash_decode's splits are combined in a fixed
-    order, so two launches on the same inputs give the same bits."""
+    """No atomics, flash_decode's splits combined in a fixed order and
+    ssd_scan's chunk states summed in chunk order, so two launches on the
+    same inputs give the same bits."""
     entry = _entry(name)
     specs = [spec for lbl, spec in entry["cases"] if lbl == label]
     if not specs:
@@ -209,7 +226,9 @@ def test_redesigned_kernels_are_bitwise_equal_run_to_run(hopper, name, label):
     first = entry["wrapper"](*args)
     second = entry["wrapper"](*args)
     torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    if not isinstance(first, tuple):
+        first, second = (first,), (second,)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _device_kernels(fn):
@@ -253,3 +272,31 @@ def test_one_split_runs_one_kernel_and_no_workspace(hopper):
     att = _entry("flash_decode")["inputs"](long, gen)
     names = _device_kernels(lambda: dec.flash_decode(*att))
     assert len(names) == 2 and "combine" in names[1]
+
+
+@pytest.mark.gpu
+def test_swiglu_gmm_and_ssd_scan_kernels_and_allocations(hopper):
+    """At the served shapes: swiglu_gmm allocates only its output and runs
+    one kernel; ssd_scan allocates y, h and its chunk-state workspace and
+    runs three kernels (chunk states, the state pass, the chunk outputs)."""
+    from repro_torch.kernels.moe_gmm import ops as moe
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    moe_args = _entry("swiglu_gmm")["inputs"](
+        dict(_entry("swiglu_gmm")["cases"])["served"], gen)
+    ssd_args = _entry("ssd_scan")["inputs"](
+        dict(_entry("ssd_scan")["cases"])["served"], gen)
+    for fn, allocs, kernels, marks in (
+            (lambda: moe.swiglu_gmm(*moe_args), 1, 1, ("gmm_tma_kernel",)),
+            (lambda: ssd.ssd_scan(*ssd_args), 3, 3,
+             ("chunk_state_kernel", "state_pass_kernel",
+              "chunk_output_kernel"))):
+        fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+            == before + allocs
+        names = _device_kernels(fn)
+        assert len(names) == kernels
+        assert all(m in n for m, n in zip(marks, names))
