@@ -352,8 +352,9 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
     groups = {"host->device copy": ("HtoD",), "device->host copy": ("DtoH",),
               "device copy": ("DtoD",), "grouped expert kernels":
               ("gmm_tma_kernel", "gmm_scalar_kernel"),
-              "attention kernels": ("flash_kernel", "decode_split_kernel",
-                                    "decode_combine_kernel"),
+              "attention kernels": ("decode_split_kernel",
+                                    "prefill_split_kernel",
+                                    "combine_kernel"),
               "ssd scan kernel": ("chunk_state_kernel", "state_pass_kernel",
                                   "chunk_output_kernel"),
               "gemm (projections, router, logits)":
@@ -575,8 +576,10 @@ def check_attention(engine):
     op, _ = attn.decode_attention_paged(p, x, {"k": kp.clone(),
                                                "v": vp.clone()},
                                         pos, pages, cfg)
-    # the two kernels walk the same keys in the same tiles: one bf16
-    # rounding of the attention output, carried through wo
+    # one split kernel, fed from the dense cache and, through the page
+    # table in boxes of 16 keys, from the pool: here one split of the same
+    # 128 keys either way. Held to one bf16 rounding of the attention
+    # output, carried through wo
     close("decode_attention_paged vs decode_attention", op, od, 2 ** -6)
     C, pos0, plen = PAGED["segment"], 64, 90
     xs = rnd(1, C, cfg.d_model)

@@ -196,6 +196,19 @@ PAGED_DECODE_CASES = [
                     Hk=8, hd=128)),
     ("ragged", dict(lengths=[5, 130, 77], ps=4, max_pages=40, window=9,
                     H=12, Hk=4, hd=32)),
+    # split S over the pool: the engine's full-width rows (every row 320
+    # pages, last_page_len <= 0 on all but row 0) in 8 splits of 640 keys;
+    # windows of 300 from inside splits 7 and 3, a row whose keys end in
+    # split 0, a row of one key
+    ("ragged", dict(lengths=[5000, 17, 2600, 1], ps=16, max_pages=320,
+                    full_width=True, window=300, **MIXTRAL_ATTN)),
+    # ps 12 (boxes of 4 keys, 3 a page) in 12 splits of 256
+    ("ragged", dict(lengths=[3001, 700, 12], ps=12, max_pages=251,
+                    window=-1, H=8, Hk=2, hd=128)),
+    # ps 128 (one box, two tiles a page), engine rows, 16 splits of 256; a
+    # window of 1000 from inside split 11
+    ("ragged", dict(lengths=[4000, 129, 2049], ps=128, max_pages=32,
+                    full_width=True, window=1000, H=16, Hk=4, hd=64)),
 ]
 
 
@@ -205,7 +218,9 @@ def paged_flash_decode_inputs(spec, gen):
     B = len(spec["lengths"])
     num_pages = sum(-(-n // ps) for n in spec["lengths"]) + 3
     kp, vp = _pool(gen, num_pages, ps, Hk, hd)
-    indptr, indices, lastlen = _csr(spec["lengths"], ps, num_pages, rng)
+    width = spec["max_pages"] if spec.get("full_width") else 0
+    indptr, indices, lastlen = _csr(spec["lengths"], ps, num_pages, rng,
+                                    width)
     return (_rnd(gen, B, H, hd), kp, vp, indptr, indices, lastlen,
             spec["max_pages"], spec["window"])
 
@@ -244,6 +259,18 @@ PAGED_PREFILL_CASES = [
     ("ragged", dict(C=13, pos0=[50, 2], lengths=[61, 12], ps=4,
                     max_pages=20, full_width=True, window=-1, H=12, Hk=4,
                     hd=32)),
+    # split over keys: C * group = 160 (two 128-row tiles) at a 3000-token
+    # context, ps 12, engine rows of 256 pages (3072 keys: the plain flash
+    # scan takes whole 1024-key chunks), 4 splits of 768; row 1's keys end
+    # in split 0 and its prompt ends inside the segment
+    ("ragged", dict(C=40, pos0=[3000, 60], lengths=[3040, 95], ps=12,
+                    max_pages=256, full_width=True, window=-1,
+                    **MIXTRAL_ATTN)),
+    # ps 128, C * group = 12 (one padded warp), 16 splits of 256; a window
+    # of 700 from inside split 5 (row 0) and split 13 (row 1)
+    ("ragged", dict(C=3, pos0=[2000, 4093], lengths=[2003, 4096], ps=128,
+                    max_pages=32, full_width=False, window=700, H=16, Hk=4,
+                    hd=64)),
 ]
 
 

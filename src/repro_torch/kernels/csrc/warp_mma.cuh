@@ -1,9 +1,10 @@
-// Warp-level building blocks shared by the kernels that multiply on the
-// tensor cores with mma.sync (moe_gmm.cu's grouped matmuls, ssd_scan.cu's
-// chunk products): 16-byte cp.async copies into shared memory, ldmatrix
-// fragment loads, the bf16 m16n8k16 product with fp32 accumulators, and the
-// split of an fp32 value into two bf16 (hi + lo) for products that need
-// more than bf16's 8 bits of one operand.
+// Building blocks shared by the kernels that multiply on the tensor cores
+// (moe_gmm.cu's grouped matmuls, ssd_scan.cu's chunk products,
+// prefill_attention.cu's attention tiles): 16-byte cp.async copies into
+// shared memory, ldmatrix fragment loads, the bf16 m16n8k16 product with
+// fp32 accumulators, the split of an fp32 value into two bf16 (hi + lo) for
+// products that need more than bf16's 8 bits of one operand, and a
+// warpgroup's asynchronous m64n64k16 product (wgmma).
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gid + tig): A (16 x 16,
 // row-major) a0 = (gid, 2tig..2tig+1), a1 = (gid+8, ..), a2 = (gid,
@@ -90,6 +91,97 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
                                            uint32_t& lo) {
   hi = pack_bf16(v0, v1);
   lo = pack_bf16(v0 - bf16_lo(hi), v1 - bf16_hi(hi));
+}
+
+// -- wgmma: a warpgroup's m64n64k16 product into fp32 accumulators in
+// mma.sync's C layout (warp i of the group holds rows 16 i .. 16 i + 15,
+// one [4] per n8 tile). wgmma_rs: A (64 x 16) from registers in mma.sync's
+// A layout, B (16 x 64) read by the tensor cores from shared memory, a
+// [k][64] bf16 tile stored N-major ("transposed"). wgmma_ss: A (64 x 16)
+// and B (16 x 64) both from shared memory, K-major: [64 rows][k] tiles, a
+// k-step 32 bytes on along the row. Every tile has rows of 128 bytes in the
+// 128-byte swizzle (16-byte piece v of row r at piece v ^ (r % 8)), 8-row
+// groups 1024 bytes apart: what a TMA box of 64 bf16 columns writes.
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t desc_n128(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders the compiler's accesses to the accumulators against the async
+// products (they are not to be read or written while a group is in flight).
+__device__ __forceinline__ void wg_hold(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+// The same for A fragments: computed before the fence that precedes their
+// product.
+__device__ __forceinline__ void wg_hold(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[r]) :: "memory");
+}
+
+// Makes this thread's writes to shared memory (stores or cp.async) visible
+// to the tensor cores' (async-proxy) reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "n"(1));
 }
 
 }  // namespace wmma_sync

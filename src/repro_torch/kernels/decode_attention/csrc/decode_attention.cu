@@ -1,5 +1,5 @@
 // Flash-decode attention for Hopper: one query token per batch row against
-// a dense KV cache or the paged KV pool.
+// a dense KV cache or the paged KV pool, one kernel for both.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   flash_decode_bf16       <- decode_attention/decode_attention.py:
@@ -9,83 +9,92 @@
 // q [B, H, hd]; dense k/v [B, S, Hk, hd] with pos [B] (row b sees keys
 // j <= pos[b], and j > pos[b] - window when window > 0); paged k/v
 // [num_pages, page_size, Hk, hd] through the CSR page table (page_indptr
-// [B+1], page_indices, last_page_len [B]; row b's last key sits at
-// (n_pages_b - 1) * page_size + last_page_len_b - 1). out [B, H, hd]. All
-// bf16 and contiguous; fp32 scores, softmax state and PV, one rounding.
+// [B+1], page_indices, last_page_len [B]); row b's query sits at its last
+// key (n_pages_b - 1) * page_size + last_page_len_b - 1, a signed value:
+// the engine's full-width rows pass last_page_len <= 0. out [B, H, hd].
+// All bf16 and contiguous; fp32 scores, softmax state and PV, one rounding.
 //
 // What bounds them on an H100: each K and V element is read once and meets
 // `group` (= 4 for Mixtral) query heads, two flops each way: ~4 flop per
 // byte, far below the ~295 where the tensor cores bind, and at the long
 // shape (B = 4, S = 32768, Hk = 8, hd = 128) 2.1 GFLOP, which the fp32 CUDA
 // cores do in ~0.03 ms. The bound is bytes: K and V up to each row's
-// position, over 3.35 TB/s (537 MB at the long shape, 0.160 ms). So the
-// products stay on the fp32 CUDA cores; what matters is keeping HBM busy.
+// position, over 3.35 TB/s (537 MB at the long shape, 0.160 ms), the same
+// for the dense cache and the pool. So the products stay on the fp32 CUDA
+// cores; what matters is keeping HBM busy.
 //
-// flash_decode_bf16: split S across blocks, then combine.
+// decode_split_kernel<HD, ROWS, PAGED>: split S across blocks, then combine.
 //   * grid (row tiles x splits, Hk, B): one block per (row, kv head, split
 //     of the key axis), where one block per (row, kv head) over all keys
 //     would put 32 blocks on 132 SMs at the long shape. The host picks the
-//     splits from the shapes and the SM count (ops.py: decode_splits): as
+//     splits from the shapes and the SM count (ops.py: decode_splits, from
+//     S or, paged, max_pages * page_size; the tables stay on the card): as
 //     many as fill 2 blocks on every SM in one wave (at the long shape 8
 //     splits of 4096 keys: 256 blocks);
 //   * each split intersects its keys with the row's visible range
-//     [max(0, pos - window + 1), min(pos, S - 1)] (the mask of
-//     flash_tile.cuh) and walks it in 64-key tiles;
-//   * a ring of K/V tiles in shared memory, filled by TMA: one producer
-//     warp asks for each tile as 3-D boxes (64 keys x 1 head x 64 dims,
-//     128-byte swizzled, zero-filled past the cache) and counts them on the
-//     stage's mbarrier; it refills a stage as soon as the consumers release
-//     it, so the next tile is in flight while this one is scored;
+//     [max(0, q - window + 1), q], q = pos[b] or the row's last key, and
+//     walks it in 64-key tiles;
+//   * a ring of K/V tiles in shared memory, filled by TMA (split_kv.cuh):
+//     one producer warp asks for each tile as 3-D boxes (1 head x 64 dims,
+//     128-byte swizzled) and counts them on the stage's mbarrier; it
+//     refills a stage as soon as the consumers release it, so the next tile
+//     is in flight while this one is scored. Dense: one box of 64 keys a
+//     column. Paged: the only change; the producer reads the row's page ids
+//     itself and cuts a tile into boxes of gcd(page_size, 64) keys, which
+//     never cross a page; tiles past the row's last page clamp to it and the
+//     mask drops their keys;
 //   * 8 consumer warps own 8 keys of every tile each and keep their own
 //     online softmax (m, l, acc) in registers: scores by a key a lane over
 //     a quarter of the head dims (q in shared memory as fp32, already
 //     scaled), PV with a lane owning hd / 32 dims; no block barrier inside
 //     the loop. The warps' states merge in warp order at the end;
-//   * with one split (the served shape: S = 49) the block normalises and
-//     writes bf16 directly: no workspace, no second launch. With more, it
-//     writes an fp32 partial (m, l, unnormalised acc) per (row, head,
-//     split) to a workspace the wrapper allocates (a split that sees no
-//     key writes m = -1e30, l = 0, acc = 0), and a second small kernel
-//     merges the partials in split order and rounds to bf16 once. No
-//     atomics: results are bitwise equal from run to run.
+//   * with one split (the served shapes: S = 49 dense, 8 pages of 16
+//     paged) the block normalises and writes bf16 directly: no workspace,
+//     no second launch. With more, it writes an fp32 partial (m, l,
+//     unnormalised acc) per (row, head, split) to a workspace the wrapper
+//     allocates (a split that sees no key writes m = -1e30, l = 0, acc = 0),
+//     and split_kv::combine_kernel merges the partials in split order and
+//     rounds to bf16 once. No atomics: results are bitwise equal from run
+//     to run.
 // More splits (12, 16, 32: 3 or more blocks on some SMs), a third ring
-// stage and 4 consumer warps were measured and ran no faster (PERF.md,
-// section 6); PERF.md also gives what still holds the kernel back.
-//
-// paged_flash_decode_bf16 runs the shared pass of flash_tile.cuh: one block
-// per (row, kv head), the S axis a loop over 64-key tiles; a paged block
-// reads its page ids itself and walks only its own n_pages pages.
+// stage and 4 consumer warps were measured on the dense cache and ran no
+// faster (PERF.md, section 6); PERF.md also gives the times and what still
+// holds the kernel back.
 //
 // Each entry launches on the given stream, allocates nothing and returns 0,
-// a CUDA error code, -1 for an unsupported head dimension, or -2 for a
-// split that does not cover S.
-#include "flash_tile.cuh"
+// a CUDA error code, -1 for an unsupported head dimension, -2 for a split
+// that does not cover S, or -3 for a page size below 1.
+#include "split_kv.cuh"
 #include "tma.cuh"
 
 namespace split_decode {
 
+using split_kv::kKT;
+using split_kv::kNegInf;
+using split_kv::kv_off;
+
 constexpr int kWarps = 8;             // consumer warps
 constexpr int kThreads = 32 * (kWarps + 1);   // + one producer warp
-constexpr int kKT = 64;               // keys per tile
 constexpr int kKW = kKT / kWarps;     // keys per consumer warp
 constexpr int kStages = 2;            // K/V tiles in the ring
-constexpr float kNegInf = -1e30f;
 
 struct Args {
   const uint16_t* q;                  // [B, H, HD]
-  const uint16_t* k;                  // [B, S, Hk, HD]
+  const uint16_t* k;                  // [B, S, Hk, HD] | [N, ps, Hk, HD]
   const uint16_t* v;
-  const int* pos;                     // [B]
+  const int* pos;                     // dense: [B]
+  const int* indptr;                  // paged: [B + 1]
+  const int* indices;                 // paged: [indptr[B]] page ids
+  const int* lastlen;                 // paged: [B]
   uint16_t* out;                      // [B, H, HD]
   float* ws_acc;                      // [B, H, splits, HD], or null
   float* ws_ml;                       // [B, H, splits, 2] (m, l), or null
-  int S, H, Hk, group, window, splits, split_len;
+  int S;                              // keys a row (paged: max_pages * ps)
+  int ps;                             // paged: page size
+  int kb;                             // keys a TMA box (dense: kKT)
+  int H, Hk, group, window, splits, split_len;
   float scale;
 };
-
-// Head dims in 64-wide swizzled boxes (64, 128) or one dense box (32).
-template <int HD>
-__host__ __device__ constexpr bool swizzle() { return HD % tma::kBoxCols == 0; }
 
 constexpr int kParts = 32 / kKW;      // lanes a key: each a part of the dims
 
@@ -101,20 +110,13 @@ constexpr int smem_bytes() {
          + 2 * kStages * 8;                     // full, empty mbarriers
 }
 
-// Element offset of 16-byte chunk c of key j in a K or V tile.
-template <int HD>
-__device__ __forceinline__ int kv_off(int j, int c) {
-  if (swizzle<HD>())                   // box c / 8 of [kKT keys x 64 dims]
-    return (c >> 3) * (kKT * tma::kBoxCols) + tma::swizzled(j, c & 7);
-  return j * HD + c * 8;
-}
-
 // One block per (tile of ROWS query rows of a kv head, kv head, batch row)
-// and split of the key axis. The last warp fills the ring (TMA); the
-// kWarps consumer warps each own kKW keys of every tile and keep their own
+// and split of the key axis. The last warp fills the ring (TMA, from the
+// dense cache or through the row's page table: split_kv.cuh); the kWarps
+// consumer warps each own kKW keys of every tile and keep their own
 // online-softmax state, so they never wait on one another inside the loop;
 // their states are merged, in warp order, at the end.
-template <int HD, int ROWS>
+template <int HD, int ROWS, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap) {
@@ -144,11 +146,27 @@ decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int sp = blockIdx.x % a.splits, row0 = blockIdx.x / a.splits * ROWS;
   const int rows = min(ROWS, a.group - row0);
 
+  // -- the row's keys: dense, the query at pos[b]; paged, the query at the
+  // row's last key (n_pages - 1) * ps + last_page_len - 1, signed: the
+  // engine's full-width rows pass last_page_len <= 0 --------------------
+  int qpos, kv_len;
+  split_kv::KeySource src{nullptr, 0, 0, 0, 0};
+  if (PAGED) {
+    const int p0 = a.indptr[b], n_pages = a.indptr[b + 1] - p0;
+    kv_len = n_pages * a.ps;
+    qpos = (n_pages - 1) * a.ps + a.lastlen[b] - 1;
+    src = {a.indices + p0, 0, a.ps, a.kb,
+           min(max(qpos, 0) / a.ps, n_pages - 1)};
+  } else {
+    kv_len = a.S;
+    qpos = a.pos[b];
+    src.key0 = b * a.S;
+  }
+
   // -- the keys this split sees: its range within the visible one --------
-  const int qpos = a.pos[b];
   const int lo = a.window > 0 ? max(0, qpos - a.window + 1) : 0;
   const int s0 = sp * a.split_len;
-  const int j_end = min(min(a.S, s0 + a.split_len), qpos + 1);
+  const int j_end = min(min(kv_len, s0 + a.split_len), qpos + 1);
   const int first = max(s0, lo);
   const int j_begin = s0 + (first - s0) / kKT * kKT;
   const int n_tiles = first < j_end ? (j_end - j_begin + kKT - 1) / kKT : 0;
@@ -183,24 +201,8 @@ decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   }
 
   if (warp == kWarps) {
-    // -- producer: one lane keeps the ring full ----------------------------
-    for (int t = 0; t < n_tiles; ++t) {
-      if (lane == 0) {
-        const int st = t % kStages;
-        if (t >= kStages) tma::mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        tma::mbar_expect_tx(&full[st], 2 * kKT * HD * 2);
-        const int key = b * a.S + j_begin + t * kKT;
-#pragma unroll
-        for (int bx = 0; bx < (swizzle<HD>() ? HD / tma::kBoxCols : 1); ++bx) {
-          const int off = st * kKT * HD + bx * kKT * tma::kBoxCols;
-          tma::load_3d(ks + off, &kmap, bx * tma::kBoxCols, h, key,
-                       &full[st]);
-          tma::load_3d(vs + off, &vmap, bx * tma::kBoxCols, h, key,
-                       &full[st]);
-        }
-      }
-      __syncwarp();
-    }
+    split_kv::produce<HD, kStages>(src, lane, h, j_begin, n_tiles, ks, vs,
+                                   full, empty, &kmap, &vmap);
   } else {
     // -- consumers: warp w takes keys [kKW w, kKW w + kKW) of every tile ----
     const int kk = lane % kKW, part = lane / kKW;  // a key, a part of dims
@@ -219,7 +221,7 @@ decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       for (int i = 0; i < kPC; ++i) {
         const int c = part * kPC + i;
         float kf[8];
-        flash_tile::unpack8(*reinterpret_cast<const uint4*>(
+        split_kv::unpack8(*reinterpret_cast<const uint4*>(
                                 kt + kv_off<HD>(k0 + kk, c)), kf);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -337,83 +339,86 @@ decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   }
 }
 
-// Merges the splits' partials of one (row, query head), in split order:
-// out = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s, m = max_s m_s.
-template <int HD>
-__global__ void __launch_bounds__(HD)
-decode_combine_kernel(const float* __restrict__ ws_acc,
-                      const float* __restrict__ ws_ml,
-                      uint16_t* __restrict__ out, int H, int splits) {
-  const size_t row = (size_t)blockIdx.y * H + blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = ws_ml + row * splits * 2;
-  const float* acc = ws_acc + row * splits * HD + d;
-  float m = kNegInf;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f, o = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float w = expf(ml[2 * s] - m);
-    l += w * ml[2 * s + 1];
-    o += w * acc[(size_t)s * HD];
-  }
-  out[row * HD + d] = __bfloat16_as_ushort(__float2bfloat16_rn(
-      o / fmaxf(l, 1e-30f)));
-}
-
 // Whether a kernel's shared-memory limit has been raised.
-template <int HD, int ROWS>
+template <int HD, int ROWS, bool PAGED>
 bool smem_raised = false;
 
-// The K and V maps: [B*S keys][Hk][HD] bf16, boxes of kKT keys x 1 head x
-// 64 dims (128-byte swizzled) or x HD dims (32: dense).
-template <int HD>
-int encode_maps(const Args& a, int B, CUtensorMap* kmap, CUtensorMap* vmap) {
-  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)a.Hk,
-                              (cuuint64_t)B * a.S};
-  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)a.Hk * HD * 2};
-  const cuuint32_t box[3] = {swizzle<HD>() ? tma::kBoxCols : HD, 1, kKT};
-  const int err =
-      tma::encode_bf16(kmap, a.k, 3, dims, strides, box, swizzle<HD>());
-  return err != 0 ? err
-                  : tma::encode_bf16(vmap, a.v, 3, dims, strides, box,
-                                     swizzle<HD>());
-}
-
 // Raises the kernel's dynamic shared-memory limit once (0 or an error).
-template <int HD, int ROWS>
+template <int HD, int ROWS, bool PAGED>
 int raise_smem() {
-  if (smem_raised<HD, ROWS>) return 0;
+  if (smem_raised<HD, ROWS, PAGED>) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel<HD, ROWS>,
+      decode_split_kernel<HD, ROWS, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HD, ROWS>());
   if (e != cudaSuccess) return (int)e;
-  smem_raised<HD, ROWS> = true;
+  smem_raised<HD, ROWS, PAGED> = true;
   return 0;
 }
 
-template <int HD, int ROWS>
-int launch(const Args& a, int B, int row_tiles, cudaStream_t stream) {
+// keys: rows of the K/V maps (dense B * S, paged N * ps).
+template <int HD, int ROWS, bool PAGED>
+int launch(const Args& a, int B, long long keys, int row_tiles,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<HD, ROWS>();
   CUtensorMap kmap, vmap;
-  int err = encode_maps<HD>(a, B, &kmap, &vmap);
-  if (err == 0) err = raise_smem<HD, ROWS>();
+  int err = split_kv::encode_kv_maps(
+      a.k, a.v, HD, a.Hk, keys, split_kv::box_cols<HD>(), a.kb,
+      split_kv::swizzle<HD>(), &kmap, &vmap);
+  if (err == 0) err = raise_smem<HD, ROWS, PAGED>();
   if (err != 0) return err;
   const dim3 grid(row_tiles * a.splits, a.Hk, B);
-  decode_split_kernel<HD, ROWS><<<grid, kThreads, smem, stream>>>(a, kmap,
-                                                                  vmap);
+  decode_split_kernel<HD, ROWS, PAGED><<<grid, kThreads, smem, stream>>>(
+      a, kmap, vmap);
   const int launched = (int)cudaGetLastError();
   if (launched != 0 || a.splits == 1) return launched;
-  decode_combine_kernel<HD><<<dim3(a.H, B), HD, 0, stream>>>(
+  split_kv::combine_kernel<HD><<<dim3(a.H, B), HD, 0, stream>>>(
       a.ws_acc, a.ws_ml, a.out, a.H, a.splits);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_rows(const Args& a, int B, cudaStream_t stream) {
-  if (a.group <= 4) return launch<HD, 4>(a, B, 1, stream);
-  if (a.group <= 8) return launch<HD, 8>(a, B, 1, stream);
-  return launch<HD, 16>(a, B, (a.group + 15) / 16, stream);
+template <int HD, bool PAGED>
+int launch_rows(const Args& a, int B, long long keys, cudaStream_t stream) {
+  if (a.group <= 4) return launch<HD, 4, PAGED>(a, B, keys, 1, stream);
+  if (a.group <= 8) return launch<HD, 8, PAGED>(a, B, keys, 1, stream);
+  return launch<HD, 16, PAGED>(a, B, keys, (a.group + 15) / 16, stream);
+}
+
+// The arguments both entries share; -2 where the splits do not cover the
+// S keys a row may hold (paged: max_pages * page_size) in whole tiles.
+int fill(Args* a, const void* q, const void* k, const void* v, void* out,
+         void* ws_acc, void* ws_ml, int S, int H, int Hk, int window,
+         float scale, int splits, int split_len) {
+  if (splits < 1 || split_len % kKT != 0 ||
+      (long long)splits * split_len < S ||
+      (long long)(splits - 1) * split_len >= S ||
+      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+    return -2;
+  a->q = (const uint16_t*)q;
+  a->k = (const uint16_t*)k;
+  a->v = (const uint16_t*)v;
+  a->out = (uint16_t*)out;
+  a->ws_acc = splits > 1 ? (float*)ws_acc : nullptr;
+  a->ws_ml = splits > 1 ? (float*)ws_ml : nullptr;
+  a->S = S;
+  a->H = H;
+  a->Hk = Hk;
+  a->group = H / Hk;
+  a->window = window;
+  a->splits = splits;
+  a->split_len = split_len;
+  a->scale = scale;
+  a->kb = kKT;
+  return 0;
+}
+
+template <bool PAGED>
+int launch_hd(const Args& a, int B, int hd, long long keys, cudaStream_t s) {
+  switch (hd) {
+    case 32: return launch_rows<32, PAGED>(a, B, keys, s);
+    case 64: return launch_rows<64, PAGED>(a, B, keys, s);
+    case 128: return launch_rows<128, PAGED>(a, B, keys, s);
+    default: return -1;
+  }
 }
 
 }  // namespace split_decode
@@ -427,60 +432,39 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  void* ws_ml, int B, int S, int H, int Hk,
                                  int hd, int window, float scale, int splits,
                                  int split_len, void* stream) {
-  if (splits < 1 || split_len % split_decode::kKT != 0 ||
-      (long long)splits * split_len < S ||
-      (long long)(splits - 1) * split_len >= S ||
-      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
-    return -2;
   split_decode::Args a{};
-  a.q = (const uint16_t*)q;
-  a.k = (const uint16_t*)k;
-  a.v = (const uint16_t*)v;
+  const int err = split_decode::fill(&a, q, k, v, out, ws_acc, ws_ml, S, H,
+                                     Hk, window, scale, splits, split_len);
+  if (err != 0) return err;
   a.pos = pos;
-  a.out = (uint16_t*)out;
-  a.ws_acc = splits > 1 ? (float*)ws_acc : nullptr;
-  a.ws_ml = splits > 1 ? (float*)ws_ml : nullptr;
-  a.S = S;
-  a.H = H;
-  a.Hk = Hk;
-  a.group = H / Hk;
-  a.window = window;
-  a.splits = splits;
-  a.split_len = split_len;
-  a.scale = scale;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 32: return split_decode::launch_rows<32>(a, B, s);
-    case 64: return split_decode::launch_rows<64>(a, B, s);
-    case 128: return split_decode::launch_rows<128>(a, B, s);
-    default: return -1;
-  }
+  return split_decode::launch_hd<false>(a, B, hd, (long long)B * S,
+                                        (cudaStream_t)stream);
 }
 
+// The same over the paged pool [num_pages, page_size, Hk, hd]; the splits
+// cover max_pages * page_size keys.
 extern "C" int paged_flash_decode_bf16(const void* q, const void* k_pages,
                                        const void* v_pages,
                                        const int* page_indptr,
                                        const int* page_indices,
                                        const int* last_page_len, void* out,
-                                       int B, int num_pages, int page_size,
-                                       int H, int Hk, int hd, int window,
-                                       float scale, void* stream) {
-  flash_tile::Args a{};
-  a.q = (const uint16_t*)q;
-  a.k = (const uint16_t*)k_pages;
-  a.v = (const uint16_t*)v_pages;
-  a.out = (uint16_t*)out;
-  a.pos = nullptr;                     // the query sits at the row's last key
+                                       void* ws_acc, void* ws_ml, int B,
+                                       int num_pages, int page_size,
+                                       int max_pages, int H, int Hk, int hd,
+                                       int window, float scale, int splits,
+                                       int split_len, void* stream) {
+  if (page_size < 1) return -3;
+  split_decode::Args a{};
+  const int err = split_decode::fill(
+      &a, q, k_pages, v_pages, out, ws_acc, ws_ml, max_pages * page_size, H,
+      Hk, window, scale, splits, split_len);
+  if (err != 0) return err;
   a.indptr = page_indptr;
   a.indices = page_indices;
   a.lastlen = last_page_len;
-  a.C = 1;
-  a.H = H;
-  a.Hk = Hk;
-  a.group = H / Hk;
-  a.num_pages = num_pages;
-  a.page_size = page_size;
-  a.window = window;
-  a.scale = scale;
-  return flash_tile::launch<true>(a, B, hd, stream);
+  a.ps = page_size;
+  a.kb = split_kv::page_box_keys(page_size);
+  return split_decode::launch_hd<true>(a, B, hd,
+                                       (long long)num_pages * page_size,
+                                       (cudaStream_t)stream);
 }

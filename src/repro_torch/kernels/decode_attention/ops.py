@@ -4,14 +4,16 @@ and their plain PyTorch versions.
 ``flash_decode`` and ``paged_flash_decode`` replace the JAX package's
 Pallas TPU kernels (``src/repro/kernels/decode_attention/``:
 ``decode_attention.py::flash_decode`` / ``_decode_kernel`` and
-``paged.py::paged_flash_decode`` / ``_paged_kernel``) with the hand-written
-CUDA kernels in ``csrc/decode_attention.cu``; that file's header gives
-their bound (bytes: K and V read once up to each row's position) and what
-the design does about it. ``flash_decode`` splits the key axis across
-blocks (:func:`decode_splits` picks the splits from the shapes and the
-card's SM count); with more than one split a second kernel combines the
-fp32 partials in split order (:func:`flash_decode_split_plain` is that
-algorithm in plain PyTorch, for the tests). The wrapper contracts are the
+``paged.py::paged_flash_decode`` / ``_paged_kernel``) with one hand-written
+CUDA kernel in ``csrc/decode_attention.cu``, fed from the dense cache or,
+through the page table, from the paged pool; that file's header gives its
+bound (bytes: K and V read once up to each row's position) and what the
+design does about it. Both wrappers split the key axis across blocks
+(:func:`decode_splits` picks the splits from the shapes and the card's SM
+count); with more than one split a second kernel combines the fp32
+partials in split order (:func:`flash_decode_split_plain` and
+:func:`paged_flash_decode_split_plain` are that algorithm in plain
+PyTorch, for the tests). The wrapper contracts are the
 reference's (``decode_attention/ops.py``): ``pos`` is a scalar or a
 ``[B]`` vector, and CSR tables sized for another batch raise
 ``ValueError``.
@@ -23,6 +25,7 @@ wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Tuple
 
@@ -37,6 +40,7 @@ SMS = 132                            # streaming multiprocessors of an H100 SXM
 BLOCKS_PER_SM = 2                    # split blocks an SM runs (decode_splits)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load(SOURCE)
@@ -44,8 +48,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_decode_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       f, i, i, p]
     lib.flash_decode_bf16.restype = i
-    lib.paged_flash_decode_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                            i, i, i, f, p]
+    lib.paged_flash_decode_bf16.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                            i, i, i, i, i, i, f, i, i, p]
     lib.paged_flash_decode_bf16.restype = i
     return lib
 
@@ -104,6 +108,8 @@ def raise_on(err: int, name: str) -> None:
         raise ValueError(f"{name}: unsupported head dimension")
     if err == -2:
         raise ValueError(f"{name}: the key splits do not cover S")
+    if err == -3:                      # every page size >= 1 is built
+        raise ValueError(f"{name}: unsupported page size")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -111,6 +117,15 @@ def raise_on(err: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    return _sm_count(t.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_gather(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -207,6 +222,13 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
         ms.append(m)
         ls.append(p.sum(-1))
         accs.append(torch.einsum("bhgk,bkhd->bhgd", p, v.float()))
+    return combine_splits(ms, ls, accs).reshape(B, H, hd).to(q.dtype)
+
+
+def combine_splits(ms, ls, accs) -> torch.Tensor:
+    """The splits' partials (m, l, unnormalised acc) merged in split order:
+    sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s, m = max_s m_s, in
+    fp32 (the combine kernel's arithmetic)."""
     m_all = torch.stack(ms).max(dim=0).values
     l = torch.zeros_like(m_all)
     o = torch.zeros_like(accs[0])
@@ -214,8 +236,7 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
         w = torch.exp(m - m_all)
         l = l + w * ls_
         o = o + w[..., None] * acc
-    o = o / l.clamp(min=1e-30)[..., None]
-    return o.reshape(B, H, hd).to(q.dtype)
+    return o / l.clamp(min=1e-30)[..., None]
 
 
 def paged_flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -231,7 +252,42 @@ def paged_flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return flash_decode_plain(q, k, v, last, window)
 
 
+def paged_flash_decode_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   page_indptr: torch.Tensor,
+                                   page_indices: torch.Tensor,
+                                   last_page_len: torch.Tensor,
+                                   max_pages: int, window: int = -1,
+                                   splits=None) -> torch.Tensor:
+    """``paged_flash_decode``'s two passes in plain PyTorch: the rows'
+    pages gathered, then :func:`flash_decode_split_plain` with each row's
+    query at its last key and the splits (``decode_splits`` of
+    ``max_pages * page_size`` keys unless given) the kernel takes. For the
+    tests: the serving path never calls it."""
+    B, H, _ = q.shape
+    k, v, last = paged_gather(k_pages, v_pages, page_indptr, page_indices,
+                              last_page_len, max_pages)
+    splits = splits or decode_splits(B, k.shape[1], H, k.shape[2])
+    return flash_decode_split_plain(q, k, v, last, window, splits)
+
+
 # -- wrappers ----------------------------------------------------------------
+
+def split_workspace(rows: Tuple[int, ...], hd: int, splits: int, device):
+    """The fp32 partials of ``splits`` > 1 key splits: (acc [*rows, splits,
+    hd], (m, l) [*rows, splits, 2]); (None, None) for one split."""
+    if splits == 1:
+        return None, None
+    return (torch.empty(rows + (splits, hd), dtype=torch.float32,
+                        device=device),
+            torch.empty(rows + (splits, 2), dtype=torch.float32,
+                        device=device))
+
+
+def ptr_of(t):
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  window: int = -1) -> torch.Tensor:
@@ -251,18 +307,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits, split_len = decode_splits(B, S, H, Hk, sms)
-    ws_acc = ws_ml = None
-    if splits > 1:
-        ws_acc = torch.empty((B, H, splits, hd), dtype=torch.float32,
-                             device=q.device)
-        ws_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
-                            device=q.device)
+    splits, split_len = decode_splits(B, S, H, Hk, sm_count(q))
+    ws_acc, ws_ml = split_workspace((B, H), hd, splits, q.device)
     err = _lib().flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_b.data_ptr(),
-        out.data_ptr(), *(t.data_ptr() if t is not None else None
-                          for t in (ws_acc, ws_ml)),
+        out.data_ptr(), ptr_of(ws_acc), ptr_of(ws_ml),
         B, S, H, Hk, hd, int(window), hd ** -0.5, splits, split_len,
         stream_of(q))
     raise_on(err, "flash_decode")
@@ -278,7 +327,9 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     """q [B, H, hd]; k_pages/v_pages [num_pages, page_size, Hk, hd];
     page_indptr [B+1] / page_indices / last_page_len [B]: CSR page tables
     (every row >= 1 page, at most ``max_pages``; page ids in
-    [0, num_pages)). Row b's query sits at its last key. -> [B, H, hd]."""
+    [0, num_pages)). Row b's query sits at its last key. The key axis
+    splits as ``decode_splits`` picks for ``max_pages * page_size`` keys.
+    -> [B, H, hd]."""
     B, H, hd = q.shape
     check_tables(B, page_indptr, last_page_len)
     if q.device.type == "cpu":
@@ -298,10 +349,13 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, split_len = decode_splits(B, max_pages * ps, H, Hk, sm_count(q))
+    ws_acc, ws_ml = split_workspace((B, H), hd, splits, q.device)
     err = _lib().paged_flash_decode_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        *(t.data_ptr() for t in tables), out.data_ptr(), B, N, ps, H, Hk,
-        hd, int(window), hd ** -0.5, stream_of(q))
+        *(t.data_ptr() for t in tables), out.data_ptr(), ptr_of(ws_acc),
+        ptr_of(ws_ml), B, N, ps, int(max_pages), H, Hk, hd, int(window),
+        hd ** -0.5, splits, split_len, stream_of(q))
     raise_on(err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out

@@ -5,9 +5,13 @@ Hopper kernel and its plain PyTorch version.
 (``src/repro/kernels/prefill_attention/paged.py::paged_flash_prefill`` /
 ``_prefill_kernel``) with the hand-written CUDA kernel in
 ``csrc/prefill_attention.cu``; that file's header gives its bound and what
-the design does about it. The wrapper contract is the reference's
-(``prefill_attention/ops.py``): ``pos0`` is a scalar or a ``[B]`` vector,
-and CSR tables sized for another batch raise ``ValueError``.
+the design does about it: both products on the tensor cores, the key axis
+split across blocks (:func:`prefill_splits`) and the fp32 partials
+combined in split order. :func:`paged_flash_prefill_split_plain` is that
+algorithm, with its rounding points, in plain PyTorch for the tests. The
+wrapper contract is the reference's (``prefill_attention/ops.py``):
+``pos0`` is a scalar or a ``[B]`` vector, and CSR tables sized for another
+batch raise ``ValueError``.
 
 The plain version is the online-softmax scan over key chunks that the
 port's prefill attention runs (:func:`flash_scan`, which
@@ -21,24 +25,31 @@ It counts its launches in ``paged_flash_prefill.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    NEG_INF, check_cuda, check_tables, paged_gather, pos_vector, raise_on,
+    KEY_TILE, NEG_INF, SMS, check_cuda, check_tables, combine_splits,
+    paged_gather, pos_vector, ptr_of, raise_on, sm_count, split_workspace,
     stream_of)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "prefill_attention.cu"
 
+ROW_TILE = 128                       # query rows a block (8 warps of 16)
+BLOCKS_PER_SM = 1                    # prefill blocks an SM runs
 
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_flash_prefill_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                             i, i, i, i, i, f, p]
+    lib.paged_flash_prefill_bf16.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                             i, i, i, i, i, i, i, i, i, f, i,
+                                             i, p]
     lib.paged_flash_prefill_bf16.restype = i
     return lib
 
@@ -115,6 +126,75 @@ def paged_flash_prefill_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return flash_scan(q, k, v, window, pos0, last)
 
 
+def prefill_splits(B: int, C: int, H: int, Hk: int, S: int,
+                   sms: int = SMS):
+    """(splits, split_len) of ``paged_flash_prefill``'s key axis over S =
+    max_pages * page_size keys, from the shapes alone: as many splits as
+    put ``BLOCKS_PER_SM`` blocks of 128 query rows on every SM in one wave,
+    each at least 4 64-key tiles, none empty; a short row gets one split."""
+    blocks = B * Hk * -(-C * (H // Hk) // ROW_TILE)
+    tiles = max(1, -(-S // KEY_TILE))
+    n = max(1, min(tiles // 4, BLOCKS_PER_SM * sms // blocks))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * KEY_TILE
+
+
+def paged_flash_prefill_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor,
+                                    page_indptr: torch.Tensor,
+                                    page_indices: torch.Tensor,
+                                    last_page_len: torch.Tensor, pos0,
+                                    max_pages: int, window: int = -1,
+                                    splits=None) -> torch.Tensor:
+    """``paged_flash_prefill``'s kernel algorithm in plain PyTorch, with its
+    rounding points, for the tests (the serving path never calls it). The
+    key axis in splits (``prefill_splits`` unless given as ``(splits,
+    split_len)``), each walked in 64-key tiles with an online softmax:
+    scores are the fp32 sums of the bf16 products, then scaled by hd^-0.5
+    (the reference scales q first); P is rounded to bf16 before PV, l sums
+    the fp32 P. Each split yields (m, l, acc) (m = -1e30, l = 0, acc = 0
+    where it sees no key); the combine weighs them by exp(m_s - max m) in
+    split order and rounds once."""
+    B, C, H, hd = q.shape
+    k, v, last = paged_gather(k_pages, v_pages, page_indptr, page_indices,
+                              last_page_len, max_pages)
+    S, Hk = k.shape[1], k.shape[2]
+    group = H // Hk
+    n, ln = splits or prefill_splits(B, C, H, Hk, S)
+    pos0 = pos_vector(pos0, B, q.device, "pos0").long()
+    qg = q.reshape(B, C, Hk, group, hd).float()
+    j = torch.arange(S, device=q.device)
+    qpos = pos0[:, None] + torch.arange(C, device=q.device)    # [B, C]
+    valid = (j <= qpos[..., None]) & (j <= last[:, None, None])
+    if window > 0:
+        valid &= (qpos[..., None] - j) < window                # [B, C, S]
+    valid = valid[:, :, None, None, :]                      # [B, C, 1, 1, S]
+    ms, ls, accs = [], [], []
+    for sp in range(n):
+        m = torch.full((B, C, Hk, group), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, C, Hk, group, hd), device=q.device)
+        for t0 in range(sp * ln, min(S, (sp + 1) * ln), KEY_TILE):
+            kt = slice(t0, min(S, t0 + KEY_TILE))
+            s = torch.einsum("bchgd,bkhd->bchgk", qg, k[:, kt].float()) \
+                * hd ** -0.5
+            seen = valid[..., kt]
+            s = torch.where(seen, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(seen, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bchgk,bkhd->bchgd", p.to(torch.bfloat16).float(),
+                v[:, kt].float())
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    o = combine_splits(ms, ls, accs)
+    return o.reshape(B, C, H, hd).to(q.dtype)
+
+
 # -- wrapper -------------------------------------------------------------------
 
 def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
@@ -148,10 +228,14 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, split_len = prefill_splits(B, C, H, Hk, max_pages * ps,
+                                       sm_count(q))
+    ws_acc, ws_ml = split_workspace((B, C, H), hd, splits, q.device)
     err = _lib().paged_flash_prefill_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *(t.data_ptr() for t in tables), pos0.data_ptr(), out.data_ptr(),
-        B, C, N, ps, H, Hk, hd, int(window), hd ** -0.5, stream_of(q))
+        ptr_of(ws_acc), ptr_of(ws_ml), B, C, N, ps, int(max_pages), H, Hk,
+        hd, int(window), hd ** -0.5, splits, split_len, stream_of(q))
     raise_on(err, "paged_flash_prefill")
     paged_flash_prefill.launches += 1
     return out

@@ -92,76 +92,7 @@ __host__ __device__ constexpr int state_warps(int DS) {
   return 4 * ((DS + 63) / 64);
 }
 
-// -- wgmma: a warpgroup's m64n64k16 product, A (64 x 16) from registers in
-// mma.sync's A layout (warp i of the group holds rows 16 i .. 16 i + 15), B
-// (16 x 64) read by the tensor cores from shared memory. B is a [k][64]
-// bf16 tile stored N-major ("transposed"), rows of 128 bytes in the
-// 128-byte swizzle (16-byte piece v of row r at piece v ^ (r % 8)), 8-row
-// groups 1024 bytes apart. The accumulators are mma.sync's C layout, one
-// [4] per n8 tile. ------------------------------------------------------
-
 constexpr int kXW = 64;              // bf16 columns of a swizzled tile
-
-__device__ __forceinline__ uint64_t desc_n128(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Orders the compiler's accesses to the accumulators against the async
-// products (they are not to be read or written while a group is in flight).
-__device__ __forceinline__ void wg_hold(float (&d)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
-}
-
-// The same for A fragments: computed before the fence that precedes their
-// product.
-__device__ __forceinline__ void wg_hold(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[r]) :: "memory");
-}
-
-// Makes this thread's cp.async writes to shared memory visible to the
-// tensor cores' (async-proxy) reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
 
 // The dynamic shared memory from its first 1024-byte boundary (the
 // swizzle's period), by pointer arithmetic so that the compiler keeps

@@ -168,19 +168,25 @@ def test_ssd_scan_raises_instead_of_falling_back(hopper):
         entry["wrapper"](x, dt, A_log.cpu(), Bm, Cm, h0, chunk)
 
 
-# -- the redesigned kernels: flash_decode (split S), gmm and swiglu_gmm (TMA
-# ring), ssd_scan (chunk-parallel) -------------------------------------------
+# -- the redesigned kernels: flash_decode and paged_flash_decode (split S),
+# paged_flash_prefill (tensor-core tiles split over keys), gmm and swiglu_gmm
+# (TMA ring), ssd_scan (chunk-parallel) --------------------------------------
 
-REDESIGNED = ("flash_decode", "gmm", "swiglu_gmm", "ssd_scan")
+REDESIGNED = ("flash_decode", "paged_flash_decode", "paged_flash_prefill",
+              "gmm", "swiglu_gmm", "ssd_scan")
 
 # where each kernel's edge cases start among its ragged cases
-_FIRST_EDGE = dict(flash_decode=3, gmm=3, swiglu_gmm=3, ssd_scan=4)
+_FIRST_EDGE = dict(flash_decode=3, paged_flash_decode=3,
+                   paged_flash_prefill=3, gmm=3, swiglu_gmm=3, ssd_scan=4)
 
 
 def _edge_cases(name):
     """The ragged cases that reach the new kernels' edges (``cases.py``):
     flash_decode's 8 splits of S = 5000 with windows from inside splits and
-    a row that ends in split 0; gmm's and swiglu_gmm's C = 13 and 64 at the
+    a row that ends in split 0; paged_flash_decode's engine rows over 8
+    splits, page sizes 12 and 128; paged_flash_prefill's two row tiles on
+    ps 12 over 4 splits, ps 128 with windows from inside splits; gmm's and
+    swiglu_gmm's C = 13 and 64 at the
     served K and N, a K of 160 (a short last tile), K and N not multiples
     of 8; ssd_scan's single chunk with an incoming state and a last chunk
     of one step."""
@@ -196,7 +202,10 @@ def _close_any(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name, which", [
-    ("flash_decode", 0), ("gmm", 0), ("gmm", 1), ("gmm", 2), ("gmm", 3),
+    ("flash_decode", 0), ("paged_flash_decode", 0),
+    ("paged_flash_decode", 1), ("paged_flash_decode", 2),
+    ("paged_flash_prefill", 0), ("paged_flash_prefill", 1),
+    ("gmm", 0), ("gmm", 1), ("gmm", 2), ("gmm", 3),
     ("swiglu_gmm", 0), ("swiglu_gmm", 1), ("swiglu_gmm", 2),
     ("swiglu_gmm", 3), ("ssd_scan", 0), ("ssd_scan", 1)])
 def test_redesigned_kernels_match_plain_on_card(hopper, name, which):
@@ -214,9 +223,9 @@ def test_redesigned_kernels_match_plain_on_card(hopper, name, which):
 @pytest.mark.parametrize("name", REDESIGNED)
 @pytest.mark.parametrize("label", ["served", "long", "ragged"])
 def test_redesigned_kernels_are_bitwise_equal_run_to_run(hopper, name, label):
-    """No atomics, flash_decode's splits combined in a fixed order and
-    ssd_scan's chunk states summed in chunk order, so two launches on the
-    same inputs give the same bits."""
+    """No atomics, the attention kernels' splits combined in a fixed order
+    and ssd_scan's chunk states summed in chunk order, so two launches on
+    the same inputs give the same bits."""
     entry = _entry(name)
     specs = [spec for lbl, spec in entry["cases"] if lbl == label]
     if not specs:
@@ -272,6 +281,52 @@ def test_one_split_runs_one_kernel_and_no_workspace(hopper):
     att = _entry("flash_decode")["inputs"](long, gen)
     names = _device_kernels(lambda: dec.flash_decode(*att))
     assert len(names) == 2 and "combine" in names[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paged_flash_decode",
+                                  "paged_flash_prefill"])
+def test_paged_one_split_runs_one_kernel_and_no_workspace(hopper, name):
+    """At the served shapes (4 decode rows of 8 pages of 16; one 32-token
+    segment on an engine row of 8 pages) one split: the wrapper allocates
+    only its output and launches one kernel. The long context runs the
+    split kernel and its combine pass."""
+    entry = _entry(name)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = dict(entry["cases"])
+    args = entry["inputs"](cases["served"], gen)
+
+    def fn():
+        return entry["wrapper"](*args)
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == before + 1
+    assert len(_device_kernels(fn)) == 1
+    long = entry["inputs"](cases["long"], gen)
+    names = _device_kernels(lambda: entry["wrapper"](*long))
+    assert len(names) == 2 and "combine" in names[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paged_flash_decode",
+                                  "paged_flash_prefill"])
+def test_paged_wrappers_raise_value_error_on_unbuilt_head_dim(hopper, name):
+    """A head dim the kernels are not built for (96) raises ValueError on
+    CUDA tensors, before any launch."""
+    entry = _entry(name)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = list(entry["inputs"](_ragged(name)[0], gen))
+    args[0] = args[0][..., :32].repeat_interleave(3, -1).contiguous()
+    args[1] = args[1][..., :32].repeat_interleave(3, -1).contiguous()
+    args[2] = args[2][..., :32].repeat_interleave(3, -1).contiguous()
+    assert args[0].shape[-1] == 96
+    reset_launches()
+    with pytest.raises(ValueError, match="head_dim 96 not built"):
+        entry["wrapper"](*args)
+    assert launches()[name] == 0
 
 
 @pytest.mark.gpu
