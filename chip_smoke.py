@@ -24,27 +24,35 @@ Phases, in order; any failure exits non-zero:
      uncached, so both tiers carry traffic. Weights are random, seeded;
   5. the served MoE layer against a dense plain reference on the card,
      for a cached and an uncached layer;
-  6. where a dense decode step's time goes (``torch.profiler``);
-  7. serve 7 requests of 40-96 tokens (3 opening with one 64-token
+  6. where a dense decode step's time goes (``torch.profiler``), with the
+     host->device copies on the compute stream and on the copy stream
+     (post-fetch) kept apart;
+  7. the same model, weights and requests with cross-layer prefetch on:
+     tokens bitwise equal to phase 4's; then prefetch and the CPU miss
+     lane on (8 host threads, fusion of groups up to 4 tokens), the
+     paper's full configuration: the host lane carries traffic, its served
+     MoE layer against the dense plain reference; a profiled decode step
+     of each (copies by stream, activation copies, host-lane wall);
+  8. serve 7 requests of 40-96 tokens (3 opening with one 64-token
      prefix) plus one fork on the paged-KV + segment-streamed path (page
      size 16, 32-token segments, one per tick, prefix retention 8), same
      model and weights; checks tokens, counters, prefix hits, copy-on-
      write, the fork child against its parent and the page accounting;
-  8. the attention layer functions on the card: paged decode against
+  9. the attention layer functions on the card: paged decode against
      dense decode over the same KV in permuted pages, paged segment
      (kernel) against the dense segment (plain flash scan);
-  9. where a paged decode step's time goes;
- 10. where a segment-streamed prefill's time goes;
- 11. serve mamba2-370m on the generic path (``repro_torch.models.prefill``
+ 10. where a paged decode step's time goes;
+ 11. where a segment-streamed prefill's time goes;
+ 12. serve mamba2-370m on the generic path (``repro_torch.models.prefill``
      and ``decode_step``, greedy) at its published widths and all 48
      layers, seeded random weights: 4 prompts of 2048 tokens with 64
      generated tokens, then 1 prompt of 1000 (a ragged chunk) with 16;
      every prefill runs the ``ssd_scan`` kernel once per layer;
- 12. one Mamba layer on the card: through the kernel against through the
+ 13. one Mamba layer on the card: through the kernel against through the
      plain scan; prefill of S+1 tokens against prefill of S and a decode
      step, for the layer and for the 48-layer model;
- 13. where a Mamba prefill's and a decode step's time goes;
- 14. the ``kernels`` line (launch counts from the serve phases alone, by
+ 14. where a Mamba prefill's and a decode step's time goes;
+ 15. the ``kernels`` line (launch counts from the serve phases alone, by
      phase and summed) and the result line.
 Prints nothing of the result when no GPU is present.
 """
@@ -52,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -63,11 +72,14 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                         # dense bf16 tensor-core peak
 LAYERS = 4
 SERVE = dict(requests=6, prompt=(16, 32), new_tokens=16, slots=4)
-# phase 7: the paged-KV + segment-streamed path. Prompts of 40-96 tokens,
+# phase 7: prefetch, then prefetch and the CPU miss lane (the paper's full
+# configuration: 8 host threads, small-group fusion up to 4 tokens)
+HOST = dict(host_threads=8, host_fuse_small=4)
+# phase 8: the paged-KV + segment-streamed path. Prompts of 40-96 tokens,
 # three of them opening with one 64-token prefix (4 full pages of 16)
 PAGED = dict(page_size=16, segment=32, keep_pages=8, slots=4, prompt=(40, 96),
              new_tokens=16, prefix=64, requests=7, shared=(0, 4, 5))
-# phase 11: mamba2-370m's generic path, (batch, prompt, generated tokens):
+# phase 12: mamba2-370m's generic path, (batch, prompt, generated tokens):
 # the served batch, and one prompt with a 232-token ragged chunk
 MAMBA = dict(batches=((4, 2048, 64), (1, 1000, 16)))
 
@@ -264,7 +276,8 @@ def serve():
         if launches[name] <= 0:
             raise SystemExit(f"kernel {name} was never launched while "
                              f"serving the dense path")
-    return engine, launches, dict(tok_s=total / dt, seconds=dt)
+    return engine, launches, dict(tok_s=total / dt, seconds=dt, outs=outs,
+                                  hit_rate=st.hit_rate)
 
 
 def check_layer(engine):
@@ -272,7 +285,6 @@ def check_layer(engine):
     plain reference with the host-tier weights, cached and uncached."""
     import torch
     from repro_torch.core import collaborative as collab
-    from repro_torch.kernels.moe_gmm import gmm_plain, swiglu_gmm_plain
     from repro_torch.models.moe import route
     cfg, ccfg = engine.cfg, engine.ecfg.cache
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -285,14 +297,7 @@ def check_layer(engine):
         # the returned tiers keep the cache state and the slots in step
         y, engine.tiers, stats = collab.collaborative_moe(
             engine.tiers, layer, x, top_i, top_w, ccfg)
-        want = torch.zeros((T, cfg.d_model), device="cuda")
-        for t in range(T):
-            for k in range(K):
-                e = int(top_i[t, k])
-                w1, w3, w2 = (h[layer, e].to("cuda")[None]
-                              for h in engine.tiers.host)
-                h = swiglu_gmm_plain(x[t][None, None], w1, w3)
-                want[t] += top_w[t, k] * gmm_plain(h, w2)[0, 0].float()
+        want = _dense_moe(engine, layer, x, top_i, top_w)
         err = (y.float() - want).abs().max().item()
         tol = 2 ** -6 * want.abs().max().item()
         tier = "cached" if layer < ccfg.num_indexes else "uncached"
@@ -317,10 +322,13 @@ def _device_ms(ev) -> float:
 
 
 def profile_decode(engine, label: str, steps: int = 4):
-    """Phases 6 and 9: where a decode step's time goes. Four requests
+    """Phases 6, 7 and 10: where a decode step's time goes. Four requests
     decode together (no admission in the window); ``torch.profiler`` sums
-    the device time by kernel and copy, against the window's wall time.
-    A fresh scheduler re-initializes the engine's slots (and page pool)."""
+    the device time by kernel and copy, against the window's wall time,
+    and splits the copies by stream. With a host lane, its wall (the
+    executor's calls, timed on the host) a step and a layer. A fresh
+    scheduler re-initializes the engine's slots (and page pool). Returns
+    {"step_ms", "idle", "streams", "host_ms"}."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -332,6 +340,18 @@ def profile_decode(engine, label: str, steps: int = 4):
                      max_new_tokens=steps + 2)
     sched.step()                          # admission + the first decode
     torch.cuda.synchronize()
+    ex, lane = engine.host_executor, [0, 0]
+    if ex is not None:
+        compute = ex.compute_groups
+
+        def timed(*a, **k):
+            t0 = time.perf_counter_ns()
+            try:
+                return compute(*a, **k)
+            finally:
+                lane[0] += time.perf_counter_ns() - t0
+                lane[1] += 1
+        ex.compute_groups = timed
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -339,9 +359,206 @@ def profile_decode(engine, label: str, steps: int = 4):
             sched.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if ex is not None:
+        del ex.compute_groups
     print(f"[profile] {label}: {steps} decode steps at {SERVE['slots']} "
           f"slots:")
-    _report(prof, wall_ms, steps, label, "step")
+    busy = _report(prof, wall_ms, steps, label, "step")
+    streams = _by_stream(prof, steps, label)
+    host_ms = lane[0] / 1e6 / steps
+    if ex is not None:
+        print(f"[profile]   {label} host lane: {lane[1]} executor calls, "
+              f"{host_ms:.3f} ms/step wall, "
+              f"{lane[0] / 1e6 / max(lane[1], 1):.3f} ms a call (a layer "
+              f"with CPU groups)")
+    return dict(step_ms=wall_ms / steps, idle=1 - busy / wall_ms,
+                streams=streams, host_ms=host_ms)
+
+
+def _by_stream(prof, units: int, label: str):
+    """Copy time of a profiled window by stream and direction, from its
+    Chrome trace: the compute stream is the one the grouped kernels ran
+    on, any other is a copy stream. Returns {(stream, kind): ms/unit}."""
+    path = ROOT / "build" / f"profile_{label.replace(' ', '_')}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    compute, ms = None, {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel",
+                                                       "gpu_memcpy"):
+            continue
+        stream = e.get("args", {}).get("stream", e.get("tid"))
+        name = e.get("name", "")
+        if e["cat"] == "kernel":
+            if "gmm_tma_kernel" in name:
+                compute = stream
+            continue
+        kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in name),
+                    "other")
+        ms[(stream, kind)] = ms.get((stream, kind), 0.0) + e["dur"] / 1e3
+    out = {}
+    for (stream, kind), t in sorted(ms.items(), key=lambda kv: str(kv[0])):
+        where = "compute" if stream == compute else "copy"
+        key = f"{kind} {where} stream"
+        out[key] = out.get(key, 0.0) + t / units
+    for key, t in out.items():
+        print(f"[profile]   {label} {key}: {t:.3f} ms/step")
+    if compute is None:
+        print(f"[profile]   {label} streams: not measured (no grouped "
+              f"kernel in the trace)")
+    path.unlink()
+    return out
+
+
+def serve_prefetch(params, base):
+    """Phase 7: phase 4's model, weights and requests with prefetch on,
+    then with prefetch and the host lane on. Prefetch moves residency,
+    never logits, and the kernels are bitwise repeatable, so every token
+    must equal phase 4's: a slot read before its copy on the copy stream
+    landed would show here. Returns (launches by run, profiles)."""
+    import numpy as np
+    import torch
+    from repro_torch import build, kernels
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
+    lo, hi = SERVE["prompt"]
+    launches, profiles = {}, {}
+    for run, extra in (("prefetch", {}), ("host", dict(host_compute=True,
+                                                       **HOST))):
+        engine, sched = build(
+            cfg, cache=dict(num_indexes=2, num_ways=2, policy="lru"),
+            serving=dict(max_batch=SERVE["slots"],
+                         capacity=hi + SERVE["new_tokens"] + 1,
+                         prefill_chunk=8, prefetch=True, **extra),
+            seed=0, params=params, device="cuda")
+        rng = np.random.default_rng(0)
+        for _ in range(SERVE["requests"]):
+            plen = int(rng.integers(lo, hi + 1))
+            sched.submit(rng.integers(0, cfg.vocab_size, plen),
+                         max_new_tokens=SERVE["new_tokens"])
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[run] = kernels.launches()
+        st = sched.stats
+        total = sum(len(o) for o in outs.values())
+        same = sum(int(np.sum(outs[r] == base["outs"][r])) for r in outs)
+        print(f"[{run}] served {st.requests_finished} requests / {total} "
+              f"tokens in {dt:.3f} s ({total / dt:.3f} tok/s wall, "
+              f"{st.steps} decode steps); tokens equal to phase 4's: "
+              f"{same}/{total}")
+        print(f"[{run}] cache hit rate {st.hit_rate:.4f} (phase 4: "
+              f"{base['hit_rate']:.4f}; hits={st.hits} accesses="
+              f"{st.accesses} fetches={st.fetched_experts}); prefetch "
+              f"issued={st.prefetch_issued} hits={st.prefetch_hits} "
+              f"wasted={st.prefetch_wasted} predicted_correct/predicted="
+              f"{st.predicted_correct}/{st.predicted}; tpot_ms p50="
+              f"{st.tpot_ms_p50:.1f} p99={st.tpot_ms_p99:.1f}; launches "
+              f"{launches[run]}")
+        if st.requests_finished != SERVE["requests"] \
+                or st.prefetch_issued <= 0:
+            raise SystemExit(f"{run}: not every request finished, or no "
+                             f"prefetch was issued")
+        for name in ("swiglu_gmm", "gmm", "flash_decode"):
+            if launches[run][name] <= 0:
+                raise SystemExit(f"kernel {name} was never launched in the "
+                                 f"{run} run")
+        if run == "prefetch" and same != total:
+            raise SystemExit("prefetch changed the tokens of phase 4")
+        if run == "host":
+            ex = engine.host_executor
+            print(f"[host] host lane: cpu_expert_calls={st.cpu_expert_calls} "
+                  f"cpu_tokens={st.cpu_tokens} fused_groups="
+                  f"{st.fused_groups} miss_expert_groups="
+                  f"{st.miss_expert_groups} offload rate "
+                  f"{st.cpu_offload_rate:.4f}; executor calls={ex.calls} "
+                  f"groups={ex.groups} fused={ex.fused} census_calls="
+                  f"{ex.census_calls} census_threads={ex.census_threads} "
+                  f"affinity_hits={ex.affinity_hits} busy "
+                  f"{ex.busy_ns / 1e6:.1f} ms queue_peak={ex.queue_peak}; "
+                  f"peak host RSS {_peak_rss_gb():.2f} GB")
+            if st.cpu_expert_calls <= 0 or ex.groups != st.cpu_expert_calls:
+                raise SystemExit("the host lane carried no traffic, or the "
+                                 "executor ran other groups than counted")
+            for o in outs.values():
+                if len(o) != SERVE["new_tokens"] or o.min() < 0 \
+                        or o.max() >= cfg.vocab_size:
+                    raise SystemExit(f"host run: bad output {o.tolist()}")
+            check_host_layer(engine)
+        profiles[run] = profile_decode(engine, run)
+        if engine.host_executor is not None:
+            engine.host_executor.close()
+        del engine, sched
+        torch.cuda.empty_cache()
+    return launches, profiles
+
+
+def _peak_rss_gb() -> float:
+    """The process's peak resident host memory (Linux: ru_maxrss in KB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def check_host_layer(engine):
+    """Phase 7: the served MoE layer with the host lane (probe ->
+    ``hostexec.dispatch_execute`` with the engine's decision table and
+    executor -> commit) against the dense plain reference with the
+    host-tier weights, for a cached and an uncached layer. The host lane
+    computes in fp32 and rounds once to bf16, the card's lane rounds its
+    [G, A, F] intermediate too: within 2^-6 of the largest output, as
+    phase 5."""
+    import torch
+    from repro_torch import hostexec
+    from repro_torch.core import collaborative as collab
+    from repro_torch.models.moe import route
+    cfg, ccfg = engine.cfg, engine.ecfg.cache
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    T, K = SERVE["slots"], cfg.moe.top_k
+    cpu_groups = 0
+    for layer in (0, LAYERS - 1):
+        x = torch.randn((T, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        router = engine.params["scan"]["s0"]["moe"]["router"][layer]
+        _, top_i, top_w = route(router, x.float(), K)
+        pr = collab.probe(engine.tiers, layer, top_i, ccfg)
+        y, staged, dstats = hostexec.dispatch_execute(
+            engine.tiers, layer, x, top_w, pr, ccfg, engine._cpu_table,
+            engine.host_executor, engine.ecfg.host_fuse_small)
+        engine.tiers, _ = collab.commit(engine.tiers, layer, pr, staged,
+                                        ccfg)
+        cpu_groups += dstats["cpu_expert_calls"]
+        want = _dense_moe(engine, layer, x, top_i, top_w)
+        err = (y.float() - want).abs().max().item()
+        tol = 2 ** -6 * want.abs().max().item()
+        print(f"[check] host lane, layer {layer}: {dstats} "
+              f"max_abs_err={err:.6g} tol={tol:.6g}")
+        if not (torch.isfinite(y).all() and err <= tol):
+            raise SystemExit(f"the host-lane MoE layer {layer} disagrees "
+                             f"with the dense reference")
+    if cpu_groups <= 0:
+        raise SystemExit("the host-lane layer check sent no group to the CPU")
+
+
+def _dense_moe(engine, layer, x, top_i, top_w):
+    """The dense plain reference of one MoE layer on the card: every pick
+    through the plain grouped FFN with the host-tier weights, fp32 sum."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_plain, swiglu_gmm_plain
+    T, K = top_i.shape
+    want = torch.zeros((T, x.shape[-1]), device="cuda")
+    for t in range(T):
+        for k in range(K):
+            e = int(top_i[t, k])
+            w1, w3, w2 = (h[layer, e].to("cuda")[None]
+                          for h in engine.tiers.host)
+            h = swiglu_gmm_plain(x[t][None, None], w1, w3)
+            want[t] += top_w[t, k] * gmm_plain(h, w2)[0, 0].float()
+    return want
 
 
 def _report(prof, wall_ms: float, units: int, label: str, unit: str):
@@ -378,10 +595,11 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
     if busy <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
+    return busy
 
 
 def profile_segment(engine, segments: int = 2):
-    """Phase 10: where a segment-streamed prefill's time goes. One
+    """Phase 11: where a segment-streamed prefill's time goes. One
     request's prompt streams ``segments`` 32-token segments through the
     paged engine (forward with the paged-prefill kernel, KV into the pool,
     warm) under ``torch.profiler``; the prefill MoE stages each layer's
@@ -436,7 +654,7 @@ def _paged_requests(vocab: int):
 
 
 def serve_paged(params):
-    """Phase 7: the paged-KV + segment-streamed path at Mixtral's widths
+    """Phase 8: the paged-KV + segment-streamed path at Mixtral's widths
     (the same 4 layers and weights as phase 4: the pinned host tier is
     shared, not pinned twice). Once the queue is empty, a live, warmed
     request is forked into a free slot at a length inside a page, so its
@@ -533,7 +751,7 @@ def serve_paged(params):
 
 
 def check_attention(engine):
-    """Phase 8: the layer-level attention functions on the card, kernel
+    """Phase 9: the layer-level attention functions on the card, kernel
     against kernel over the same KV: ``decode_attention_paged`` (paged
     flash-decode) against ``decode_attention`` (flash-decode) with the
     cache laid out in permuted pages, and ``segment_attention_paged``
@@ -600,7 +818,7 @@ def check_attention(engine):
 
 
 def serve_mamba():
-    """Phase 11: the generic serve path (``repro_torch.models.prefill`` and
+    """Phase 12: the generic serve path (``repro_torch.models.prefill`` and
     ``decode_step``, greedy) at mamba2-370m's published widths and all 48
     layers, seeded random weights. Each batch: one prefill through the
     ``ssd_scan`` kernel (one launch per layer), then greedy decode steps
@@ -694,7 +912,7 @@ def _close(what, got, want, rel):
 
 
 def check_mamba(params, cfg):
-    """Phase 12: one Mamba layer on the card, at the served shape: the
+    """Phase 13: one Mamba layer on the card, at the served shape: the
     layer through the kernel against the same layer through the plain scan
     (``ssd_scan_plain``), and prefill of S+1 tokens against prefill of S
     tokens and one decode step (the kernel's final state and the conv
@@ -752,7 +970,7 @@ def check_mamba(params, cfg):
 
 
 def profile_mamba(params, cfg, steps: int = 4):
-    """Phase 13: where a Mamba prefill's (served batch) and a decode
+    """Phase 14: where a Mamba prefill's (served batch) and a decode
     step's time goes (``torch.profiler``)."""
     import numpy as np
     import torch
@@ -815,9 +1033,15 @@ def main() -> int:
                 print(f"[build] {src}: {line.strip()}")
     measured = check_kernels(kernels.ALL)
     print(f"[pcie] pinned host->device copy: {h2d_rate_gbps():.2f} GB/s")
-    engine, dense_launches, _ = serve()
+    engine, dense_launches, base = serve()
     check_layer(engine)
-    profile_decode(engine, "dense")
+    profiles = {"dense": profile_decode(engine, "dense")}
+    pf_launches, pf_profiles = serve_prefetch(engine.params, base)
+    profiles.update(pf_profiles)
+    for run, p in profiles.items():
+        print(f"[compare] {run}: {p['step_ms']:.3f} ms/step, idle "
+              f"{p['idle']:.4f}, host lane {p['host_ms']:.3f} ms/step, "
+              + ", ".join(f"{k} {v:.3f}" for k, v in p["streams"].items()))
     paged, paged_launches = serve_paged(engine.params)
     check_attention(paged)
     profile_decode(paged, "paged")
@@ -831,6 +1055,8 @@ def main() -> int:
     for k in kernels.ALL:
         name = k["name"]
         by_phase = {"dense": dense_launches[name],
+                    "prefetch": pf_launches["prefetch"][name],
+                    "host": pf_launches["host"][name],
                     "paged": paged_launches[name],
                     "ssm": ssm_launches[name]}
         rows.append(dict(

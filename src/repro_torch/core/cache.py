@@ -14,6 +14,12 @@ reference bit for bit:
   in_flight [N, M] — FLAG_DEMAND / FLAG_SPEC / FLAG_PENDING provenance
 
 Layers >= N are beyond coverage: accesses miss and inserts are suppressed.
+
+``reserve`` inserts *predicted* experts for a later probe (speculative
+prefetch) with the demand path's victim rule but none of a demand access's
+effects: it reports no hit, leaves an expert already present (resident or
+PENDING) untouched and never reserves under the static policy. A new
+reservation is PENDING until ``land`` (the next probe) marks it SPEC.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.config import CacheConfig
 from .policies import FLAG_DEMAND, FLAG_PENDING, FLAG_SPEC, policy_spec
 
 I32 = torch.int32
+PROTECTED = torch.iinfo(I32).max     # a protected way's victim score
 
 
 class CacheState(NamedTuple):
@@ -123,16 +130,72 @@ def access_ex(state: CacheState, layer: int, experts: torch.Tensor,
         clock += 1
         ways.append(way if valid else -1)
 
-    def put(full, row_vals):
-        out = full.clone()
-        out[row] = torch.tensor(row_vals, dtype=I32)
-        return out
-    new = CacheState(put(state.tags, tags_l), put(state.age, age_l),
-                     torch.tensor(clock, dtype=I32),
-                     put(state.in_flight, flag_l))
+    new = _put_row(state, row, tags_l, age_l, clock, flag_l)
     return (new, torch.tensor(hits, dtype=torch.bool),
             torch.tensor(ways, dtype=I32),
             torch.tensor(spec_served, dtype=torch.bool))
+
+
+def reserve(state: CacheState, layer: int, experts: torch.Tensor,
+            policy: str, protect: Optional[torch.Tensor] = None,
+            priority: Optional[torch.Tensor] = None
+            ) -> Tuple[CacheState, torch.Tensor, torch.Tensor]:
+    """Speculatively insert predicted experts, serviced in order.
+
+    experts [A] int32 (duplicates and -1 masks allowed). A way holding an
+    expert of ``protect`` (default: the batch itself) is never the victim;
+    if the victim is protected the pick is skipped. ``priority`` [A]
+    (default 0) is added to the inserted entry's age stamp, so later
+    min-age evictions take low-priority reservations first. Every pick
+    advances the clock. Returns (new state, issued [A] bool — picks whose
+    reservation claimed a slot, way [A] int32 — the claimed way, -1 where
+    nothing was issued)."""
+    spec = policy_spec(policy)
+    A = experts.shape[0]
+    if spec.is_static:
+        return (state, torch.zeros(A, dtype=torch.bool),
+                torch.full((A,), -1, dtype=I32))
+    covered = layer < state.num_indexes
+    row = layer if covered else 0
+    picks = [int(e) for e in experts.tolist()]
+    prot = {int(e) for e in (experts if protect is None else protect).tolist()}
+    prio = [0] * A if priority is None else [int(p) for p in priority.tolist()]
+    tags_l = state.tags[row].tolist()
+    age_l = state.age[row].tolist()
+    flag_l = state.in_flight[row].tolist()
+    clock = int(state.clock)
+    issued, ways = [], []
+    for e, p in zip(picks, prio):
+        valid = covered and e >= 0
+        present = valid and e in tags_l
+        # protected ways rank above every age (the reference's int32 max);
+        # empty ways (-1) never count as protected
+        guarded = [t >= 0 and t in prot for t in tags_l]
+        scores = [-1 if t < 0 else (PROTECTED if g else a)
+                  for t, a, g in zip(tags_l, age_l, guarded)]
+        victim = scores.index(min(scores))
+        insert = valid and not present and not guarded[victim]
+        if insert:
+            tags_l[victim], age_l[victim] = e, clock + p
+            flag_l[victim] = FLAG_PENDING
+        clock += 1
+        issued.append(insert)
+        ways.append(victim if insert else -1)
+    return (_put_row(state, row, tags_l, age_l, clock, flag_l),
+            torch.tensor(issued, dtype=torch.bool),
+            torch.tensor(ways, dtype=I32))
+
+
+def _put_row(state: CacheState, row: int, tags_l, age_l, clock: int,
+             flag_l) -> CacheState:
+    """A new state with set ``row`` replaced and the clock advanced."""
+    def put(full, vals):
+        out = full.clone()
+        out[row] = torch.tensor(vals, dtype=I32)
+        return out
+    return CacheState(put(state.tags, tags_l), put(state.age, age_l),
+                      torch.tensor(clock, dtype=I32),
+                      put(state.in_flight, flag_l))
 
 
 def land(state: CacheState) -> CacheState:

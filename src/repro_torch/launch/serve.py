@@ -6,16 +6,22 @@ loop for any other (the attention-free Mamba2 stack today).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
         [--concurrency 4 --requests 8] [--temperature 0.8 --top-p 0.95] \
-        [--kv-paged --page-size 16 --prefill-segment 32] [--device cpu]
+        [--kv-paged --page-size 16 --prefill-segment 32] \
+        [--prefetch --prefetch-min-prob 0.2] \
+        [--host-compute --host-threads 8 --host-fuse-small 4] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
 weights; requests, and the generic path's prompt batch, drawn from
 ``numpy.random.default_rng(--seed)``, since torch cannot reproduce
-``jax.random``). Flags of options the port does not run yet (prefetch,
-the host lane, tracing) are accepted and raise when set. Prints tokens/s
-and, on the engine, the paper's cache counters.
+``jax.random``). ``--prefetch`` (or ``--prefetch-min-prob`` > 0) turns on
+cross-layer speculative prefetch, ``--host-compute`` the CPU miss lane
+(``--host-threads``, ``--host-fuse-small``). ``--host-backend jax`` (the
+reference's in-graph lane) has no PyTorch meaning and is an error; the
+flag of an option the port does not run yet (``--trace-out``: tracing)
+is accepted and raises when set. Prints tokens/s and, on the engine, the
+paper's cache, prefetch and host-lane counters.
 """
 from __future__ import annotations
 
@@ -30,11 +36,7 @@ from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.serving import SamplingParams, build
 
 # flags of unported options: (argparse dest, value that means "off")
-UNPORTED_FLAGS = {
-    "prefetch": False, "prefetch_min_prob": 0.0, "host_compute": False,
-    "host_threads": 8, "host_fuse_small": 4, "prefetch_rank_votes": True,
-    "host_backend": "callback", "trace_out": None,
-}
+UNPORTED_FLAGS = {"trace_out": None}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -97,6 +99,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, dest) != off:
             ap.error(f"--{dest.replace('_', '-')} is not ported to "
                      f"repro_torch yet")
+    if args.host_backend == "jax":
+        ap.error("--host-backend jax has no PyTorch meaning: the reference's "
+                 "in-graph lane is --host-compute off with the dispatch "
+                 "counters; the port's host lane is callback")
     if not 0.0 < args.top_p <= 1.0:
         ap.error(f"--top-p must be in (0, 1], got {args.top_p}")
     if args.top_k < 0:
@@ -144,6 +150,7 @@ def main(argv=None) -> None:
     temp = args.temperature if args.temperature > 0 else 1.0
     n = args.indexes if args.indexes is not None else cfg.num_layers // 2
     R = args.requests or args.concurrency * 2
+    prefetch = args.prefetch or args.prefetch_min_prob > 0
     capacity = args.prompt + args.tokens + 1
     if args.kv_paged:
         # paged KV slices the per-request capacity into whole pages
@@ -152,6 +159,10 @@ def main(argv=None) -> None:
           f"M={args.ways}, {args.policy}) slots={args.concurrency} "
           f"requests={R} device={args.device} "
           f"sampling={f'T={temp}' if sample_on else 'greedy'}"
+          + (f" prefetch(min_prob={args.prefetch_min_prob})"
+             if prefetch else "")
+          + (f" host_compute({args.host_backend}, {args.host_threads}t)"
+             if args.host_compute else "")
           + (f" overlap_admit({args.admit_chunks_per_tick} chunks/tick)"
              if args.admit_chunks_per_tick else "")
           + (f" segmented_prefill({args.prefill_segment} tok/seg)"
@@ -165,6 +176,13 @@ def main(argv=None) -> None:
                      prefill_chunk=args.prefill_chunk,
                      prefill_segment=args.prefill_segment,
                      admit_chunks_per_tick=args.admit_chunks_per_tick,
+                     prefetch=prefetch,
+                     prefetch_min_prob=args.prefetch_min_prob,
+                     prefetch_rank_votes=args.prefetch_rank_votes,
+                     host_compute=args.host_compute,
+                     host_threads=args.host_threads,
+                     host_backend=args.host_backend,
+                     host_fuse_small=args.host_fuse_small,
                      kv_paged=args.kv_paged, page_size=args.page_size,
                      kv_pages=args.kv_pages,
                      prefix_keep_pages=args.prefix_keep_pages),
@@ -208,6 +226,17 @@ def main(argv=None) -> None:
               f"{stats.prefill_chunks} chunks, hit rate "
               f"{stats.prefill_hit_rate:.3f} ({stats.prefill_fetched} "
               f"fetches)")
+    if prefetch:
+        print(f"  prefetch: issued={stats.prefetch_issued} "
+              f"spec_hits={stats.prefetch_hits} "
+              f"wasted={stats.prefetch_wasted} "
+              f"pred_acc={stats.prediction_accuracy:.3f}")
+    if args.host_compute:
+        print(f"  host execution: {stats.cpu_expert_calls} expert "
+              f"groups / {stats.cpu_tokens} assignments on CPU "
+              f"({stats.fused_groups} fused, offload rate "
+              f"{stats.cpu_offload_rate:.3f}, "
+              f"backend={args.host_backend})")
     if args.prefill_segment:
         print(f"  segmented prefill: {stats.prefill_segments} segments "
               f"({args.prefill_segment} tok/seg), "

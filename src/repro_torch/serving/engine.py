@@ -9,7 +9,17 @@ layer: rmsnorm, decode attention (the flash-decode kernel over the dense
 cache, or the paged kernel over the page pool), the router, then probe
 (host-side cache check + grouping) -> execute (grouped gmm kernels over
 weights staged once per unique expert) -> commit (post-fetch into the
-slots).
+slots, on the tiers' copy stream).
+
+With ``EngineConfig.prefetch`` the layer loop is the reference's software
+pipeline: after layer l's MoE, layer l+1's router runs on layer l's output
+and its predicted picks reserve slots and stream their weights in on the
+copy stream (:func:`repro_torch.core.collaborative.prefetch`); the next
+probe lands them. Each layer scores the prediction made for it.
+With ``EngineConfig.host_compute`` the execute stage is the hybrid
+dispatcher (:mod:`repro_torch.hostexec`): the cost model sends small miss
+groups to a host thread pool over the pinned tier, the rest run on the
+card.
 
 Prefill is request-shaped and resumable, as in the reference:
 :meth:`start_prefill` runs the one prefill forward (the backbone's prefill
@@ -38,8 +48,9 @@ two tables share is copied on write before an append.
 Differences from the reference, all in how, never in what: the cache
 state, its bookkeeping and the page tables live on the host; KV caches,
 pools and slot buffers are updated in place; the layer loop is a Python
-loop. Not ported yet (each raises in :class:`EngineConfig`): prefetch and
-host compute.
+loop; the host lane is the thread pool (the reference's ``"callback"``
+backend; its in-graph ``"jax"`` backend has no PyTorch meaning and
+raises).
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import CacheConfig, ModelConfig
+from repro_torch import hostexec
 from repro_torch.core import collaborative as collab
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
@@ -63,8 +75,10 @@ from .stats import EngineStats
 Params = Dict[str, Any]
 
 # options of the reference's EngineConfig that this port does not run yet,
-# with the value that means "off"
-UNPORTED = {"prefetch": False, "host_compute": False}
+# with the value that means "off" (none left)
+UNPORTED: Dict[str, Any] = {}
+NO_DISPATCH = {"cpu_expert_calls": 0, "cpu_tokens": 0,
+               "miss_expert_groups": 0, "fused_groups": 0}
 
 
 @dataclass(frozen=True)
@@ -78,13 +92,23 @@ class EngineConfig:
     # replay (or segment stream) by at most this many chunks per scheduler
     # tick (0 = all at once on the admission tick)
     admit_chunks_per_tick: int = 0
-    prefetch: bool = False
+    prefetch: bool = False        # cross-layer speculative expert prefetch
+    prefetch_min_prob: float = 0.0  # confidence gate on reservations
+    # stamp reservations with their cross-batch vote counts (retention)
+    prefetch_rank_votes: bool = True
     # segment-streamed prefill: forward the prompt in segments of this
     # many tokens, one advance each, each warming the cache from its own
     # routing (0 = one-shot forward; prefill_chunk is then an on/off
     # warming toggle)
     prefill_segment: int = 0
+    # the CPU miss lane (repro_torch.hostexec): run cache-miss experts on a
+    # host thread pool when the cost model favors it over the fetch
     host_compute: bool = False
+    host_threads: int = 8         # executor pool / cost-model thread count
+    host_backend: str = "callback"  # the thread pool ("jax" has no port)
+    # batch small same-step CPU-miss groups (<= this many valid tokens)
+    # into one stacked matmul instead of one pool task each
+    host_fuse_small: int = 4
     # paged KV: one global [num_pages, page_size, ...] pool per layer
     # instead of the dense [max_batch, capacity, ...] cache, with prefix
     # sharing and copy-on-write
@@ -119,6 +143,25 @@ class EngineConfig:
         if self.prefix_keep_pages > 0 and not self.kv_paged:
             raise ValueError(
                 "prefix_keep_pages retains pool pages: it requires kv_paged")
+        if not 0.0 <= self.prefetch_min_prob < 1.0:
+            raise ValueError(
+                f"prefetch_min_prob must be in [0, 1), got "
+                f"{self.prefetch_min_prob}")
+        if self.host_threads < 1:
+            raise ValueError(
+                f"host_threads must be >= 1, got {self.host_threads}")
+        if self.host_backend == "jax":
+            raise NotImplementedError(
+                "EngineConfig.host_backend='jax' has no PyTorch meaning: the "
+                "reference's in-graph lane is host_compute=False with the "
+                "dispatch counters; the port's host lane is 'callback'")
+        if self.host_backend != "callback":
+            raise ValueError(
+                f"host_backend must be 'callback', got "
+                f"{self.host_backend!r}")
+        if self.host_fuse_small < 0:
+            raise ValueError(
+                f"host_fuse_small must be >= 0, got {self.host_fuse_small}")
         if self.page_size < 1:
             raise ValueError(
                 f"page_size must be >= 1, got {self.page_size}")
@@ -177,6 +220,20 @@ class PrefillTicket:
         return self.n_chunks - self.cursor
 
 
+def _score(pred_prev: torch.Tensor, rep_prev: torch.Tensor,
+           issued_prev: torch.Tensor, flat_e: torch.Tensor,
+           top_i: torch.Tensor, act: torch.Tensor) -> Dict[str, int]:
+    """Score the prediction made for this layer against its routing:
+    predicted picks of active rows, those the row's actual top-k holds,
+    and issued groups whose expert this layer never demanded."""
+    pred_valid = (pred_prev >= 0) & act[:, None]
+    pred_ok = (pred_prev[:, :, None] == top_i[:, None, :]).any(-1)
+    demanded = (rep_prev[:, None] == flat_e[None, :]).any(-1)
+    return {"predicted": int(pred_valid.sum()),
+            "predicted_correct": int((pred_ok & pred_valid).sum()),
+            "prefetch_wasted": int((issued_prev & ~demanded).sum())}
+
+
 def _one_prompt(prompt) -> np.ndarray:
     """Normalize a single request's prompt to [1, P]; reject batches."""
     prompt = np.asarray(prompt, np.int32)
@@ -209,6 +266,22 @@ class CollaborativeEngine:
             num_experts=cfg.moe.num_experts,
             generator=torch.Generator().manual_seed(seed),
             device=self.device)
+        # the host lane: the cost model's split table, and the thread pool
+        # over the pinned host tier only when the table sends some group
+        # to the CPU (an all-False table never dispatches)
+        self.host_executor: Optional[hostexec.HostExpertExecutor] = None
+        self.dispatch_policy: Optional[hostexec.HostDispatchPolicy] = None
+        self._cpu_table = None
+        if ecfg.host_compute:
+            self.dispatch_policy = hostexec.HostDispatchPolicy(
+                hostexec.timings_for(cfg.name), ecfg.host_threads)
+            self._cpu_table = torch.from_numpy(
+                self.dispatch_policy.decision_table(
+                    ecfg.max_batch * cfg.moe.top_k))
+            if bool(self._cpu_table.any()):
+                self.host_executor = hostexec.HostExpertExecutor(
+                    *self.tiers.host, threads=ecfg.host_threads,
+                    fuse_small=ecfg.host_fuse_small)
         # paged KV: the pool and the per-slot page tables are host-side
         # bookkeeping made by init_slots; the device pool rides the state
         # where the dense cache did
@@ -222,7 +295,11 @@ class CollaborativeEngine:
         self._counters = {
             "hits": 0, "accesses": 0, "host_assignments": 0,
             "fetched_experts": 0, "tokens": 0, "steps": 0,
-            "prefetch_hits": 0, "prefill_hits": 0, "prefill_accesses": 0,
+            "prefetch_issued": 0, "prefetch_hits": 0, "prefetch_wasted": 0,
+            "predicted": 0, "predicted_correct": 0,
+            "cpu_expert_calls": 0, "cpu_tokens": 0,
+            "miss_expert_groups": 0, "fused_groups": 0,
+            "prefill_hits": 0, "prefill_accesses": 0,
             "prefill_fetched": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "first_tokens": 0, "prefill_segments": 0,
             "prefix_tokens_skipped": 0}
@@ -233,8 +310,15 @@ class CollaborativeEngine:
     def stats(self) -> EngineStats:
         """Immutable snapshot of the engine counters; the paged-KV channel
         reads the pool (``kv_pages_in_use`` and ``prefix_pages_retained``
-        are gauges)."""
+        are gauges), the executor-census channel the host executor."""
         c = dict(self._counters)
+        ex = self.host_executor
+        if ex is not None:
+            c.update(census_calls=ex.census_calls,
+                     census_threads=ex.census_threads,
+                     affinity_hits=ex.affinity_hits,
+                     host_busy_us=ex.busy_ns // 1000,
+                     host_queue_peak=ex.queue_peak)
         if self.kv_pool is not None:
             c["kv_pages_in_use"] = self.kv_pool.pages_in_use
             c["prefix_hits"] = self.kv_pool.prefix_hits
@@ -255,20 +339,30 @@ class CollaborativeEngine:
         the shared cache nor the stats (paged: nor the pool); pages
         [T, max_pages] per-slot page ids on the device (paged KV only).
         Updates ``state`` in place and returns (logits [T, 1, V],
-        per-layer stats)."""
-        cfg, ccfg = self.cfg, self.ecfg.cache
+        per-layer stats).
+
+        With prefetch the layer loop is a software pipeline: after layer
+        l's MoE, layer l+1's router on layer l's output predicts layer
+        l+1's picks and reserves them; the prediction and its issued
+        groups are scored against the next layer's actual routing."""
+        cfg, ccfg, ecfg = self.cfg, self.ecfg.cache, self.ecfg
         K = cfg.moe.top_k
         x = transformer._embed_inputs(self.params, tokens, cfg)
         pos = state["pos"]
         kv = state["scan"]["s0"]
         lp_all = self.params["scan"]["s0"]
         act = torch.from_numpy(np.asarray(active, bool))
+        T = act.shape[0]
+        NG = min(T * K, cfg.moe.num_experts + 1)    # dispatch groups
+        pred_prev = torch.full((T, K), -1, dtype=torch.int32)
+        rep_prev = torch.full((NG,), -1, dtype=torch.int32)
+        issued_prev = torch.zeros((NG,), dtype=torch.bool)
         stats = []
         for layer in range(cfg.num_layers):
             lp = transformer.layer_params(lp_all, layer)
             h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
             st = {"k": kv["k"][layer], "v": kv["v"][layer]}
-            if self.ecfg.kv_paged:
+            if ecfg.kv_paged:
                 o, _ = attn.decode_attention_paged(
                     lp["attn"], h, st, pos, pages, cfg, self.slot.window,
                     active=act)
@@ -279,16 +373,55 @@ class CollaborativeEngine:
             h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
             _, top_i, top_w = route(lp["moe"]["router"], h2[:, 0].float(), K)
             pr = collab.probe(self.tiers, layer, top_i, ccfg, active=act)
-            y, staged = collab.execute(self.tiers, layer, h2[:, 0], top_w,
-                                       pr, ccfg)
+            if ecfg.host_compute:
+                y, staged, dstats = hostexec.dispatch_execute(
+                    self.tiers, layer, h2[:, 0], top_w, pr, ccfg,
+                    self._cpu_table, self.host_executor,
+                    ecfg.host_fuse_small)
+            else:
+                y, staged = collab.execute(self.tiers, layer, h2[:, 0],
+                                           top_w, pr, ccfg)
+                dstats = NO_DISPATCH
             self.tiers, fetch = collab.commit(self.tiers, layer, pr, staged,
                                               ccfg)
             x = x + y[:, None].to(x.dtype)
-            stats.append(collab._stats(pr, fetch))
+            lstats = {**collab._stats(pr, fetch), **dstats}
+            if ecfg.prefetch:
+                pred_i = self._predict(x, layer, act)
+                lstats.update(_score(pred_prev, rep_prev, issued_prev,
+                                     pr.flat_e, top_i.cpu(), act))
+                self.tiers, rep_prev, issued_prev, n_issued = \
+                    collab.prefetch(self.tiers, layer + 1, pred_i, ccfg,
+                                    active=act,
+                                    rank_votes=ecfg.prefetch_rank_votes)
+                lstats["prefetch_issued"] = n_issued
+                pred_prev = pred_i
+            stats.append(lstats)
         x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
         logits = transformer.lm_logits(self.params, x, cfg)
         state["pos"] = pos + act.to(device=pos.device, dtype=pos.dtype)
         return logits, stats
+
+    def _predict(self, x: torch.Tensor, layer: int,
+                 act: torch.Tensor) -> torch.Tensor:
+        """Layer l+1's predicted picks [T, K] (host, -1 = none): its ln2
+        and router on layer l's output, masked to active rows and, with
+        ``prefetch_min_prob``, to picks whose router probability clears
+        it. The last layer predicts nothing (the next token's layer-0
+        input is not known before sampling)."""
+        cfg = self.cfg
+        T, K = act.shape[0], cfg.moe.top_k
+        if layer + 1 >= cfg.num_layers:
+            return torch.full((T, K), -1, dtype=torch.int32)
+        lp = transformer.layer_params(self.params["scan"]["s0"], layer + 1)
+        h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        probs, pred_i, _ = route(lp["moe"]["router"], h[:, 0].float(), K)
+        gate = act[:, None].expand(T, K)
+        if self.ecfg.prefetch_min_prob > 0.0:
+            p_pick = torch.gather(probs, 1, pred_i).cpu()
+            gate = gate & (p_pick >= self.ecfg.prefetch_min_prob)
+        return torch.where(gate, pred_i.cpu().to(torch.int32),
+                           torch.full((T, K), -1, dtype=torch.int32))
 
     # -- batch-state primitives for the scheduler -------------------------
     def init_slots(self) -> Params:
@@ -791,8 +924,11 @@ class CollaborativeEngine:
     def _accumulate(self, stats: List[Dict[str, int]], n_active: int) -> None:
         c = self._counters
         for layer, s in enumerate(stats):
-            for k in ("hits", "accesses", "fetched_experts", "prefetch_hits"):
-                c[k] += s[k]
+            for k in ("hits", "accesses", "fetched_experts", "prefetch_hits",
+                      "prefetch_issued", "prefetch_wasted", "predicted",
+                      "predicted_correct", "cpu_expert_calls", "cpu_tokens",
+                      "miss_expert_groups", "fused_groups"):
+                c[k] += s.get(k, 0)
             c["host_assignments"] += s["host_flops_assignments"]
             self._per_layer_hits[layer] += s["hits"]
             self._per_layer_accesses[layer] += s["accesses"]

@@ -62,7 +62,7 @@ class EngineStats:
     # forward AND warm a prefix hit skipped outright
     prefill_segments: int = 0
     prefix_tokens_skipped: int = 0
-    # live host-execution channel (host lane; not yet ported): cache-miss expert
+    # live host-execution channel (the host lane): cache-miss expert
     # groups the cost-model dispatcher ran on the CPU, the token
     # assignments they carried, and the total executed non-resident
     # groups (CPU + fetch lanes — only counted while the dispatcher runs)
@@ -72,15 +72,14 @@ class EngineStats:
     # CPU-miss groups the host executor's small-group fusion lane batched
     # into one stacked matmul instead of one pool task each
     fused_groups: int = 0
-    # executor pool-census channel (best-effort floors — the pure_callback
-    # lane may re-invoke): censused dispatches, their summed effective
+    # executor pool-census channel (read from the host executor):
+    # censused dispatches, their summed effective
     # worker counts (mean workers = census_threads / census_calls), and
     # groups that landed on their thread-affinity bucket
     census_calls: int = 0
     census_threads: int = 0
     affinity_hits: int = 0
-    # executor pool-utilization channel (same best-effort floor caveat):
-    # summed per-worker microseconds spent inside expert FFN compute, and
+    # executor pool-utilization channel: summed per-worker microseconds spent inside expert FFN compute, and
     # the high-water mark of bucket tasks one dispatch submitted
     host_busy_us: int = 0
     host_queue_peak: int = 0

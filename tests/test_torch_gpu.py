@@ -355,3 +355,101 @@ def test_swiglu_gmm_and_ssd_scan_kernels_and_allocations(hopper):
         names = _device_kernels(fn)
         assert len(names) == kernels
         assert all(m in n for m, n in zip(marks, names))
+
+
+# -- the copy stream and the host lane ------------------------------------------
+
+def _pinned_tiers(L=2, E=4, D=2048, F=8192, ways=1, seed=11):
+    """bf16 tiers on the card over a pinned host tier; each expert matrix
+    is 32 MB, so a copy takes long enough for an unordered read to see
+    the slot before it lands."""
+    from repro_torch.config import CacheConfig
+    from repro_torch.core import collaborative as collab
+    gen = torch.Generator().manual_seed(seed)
+    host = [torch.randn(s, generator=gen).to(torch.bfloat16).pin_memory()
+            for s in ((L, E, D, F), (L, E, D, F), (L, E, F, D))]
+    ccfg = CacheConfig(num_indexes=L, num_ways=ways, policy="lru")
+    return collab.init_tiers(*host, ccfg, num_experts=E, device="cuda"), ccfg
+
+
+@pytest.mark.gpu
+def test_copy_stream_orders_slot_writes_and_reads(hopper):
+    """Post-fetch and prefetch write the slots on the copy stream; a read
+    issued right after the next probe of the layer equals the host weights
+    (what a synchronous copy gives), and a staging read of a slot that the
+    same step's post-fetch overwrites sees the old expert."""
+    from repro_torch.core import collaborative as collab
+    tiers, ccfg = _pinned_tiers()
+    assert tiers.copy.stream is not None
+    one = lambda e: torch.tensor([[e]], dtype=torch.int32)   # noqa: E731
+    # post-fetch of expert 1 into layer 0 (a warm chunk: nothing staged)
+    pr = collab.probe(tiers, 0, one(1), ccfg)
+    tiers, fetch = collab.commit(tiers, 0, pr, None, ccfg)
+    assert fetch.any()
+    collab.probe(tiers, 0, one(1), ccfg)            # waits for the copy
+    got = [s[0].clone() for s in tiers.slots]
+    for g, h in zip(got, tiers.host):
+        assert torch.equal(g.cpu(), h[0, 1])
+    # prefetch of expert 2 into layer 1, read right after the next probe
+    tiers, _, issued, n = collab.prefetch(tiers, 1, one(2), ccfg)
+    assert n == 1 and issued.any()
+    collab.probe(tiers, 1, one(2), ccfg)
+    got = [s[1].clone() for s in tiers.slots]
+    for g, h in zip(got, tiers.host):
+        assert torch.equal(g.cpu(), h[1, 2])
+    # one way: expert 1 resident in layer 0, a step picking 1 and 3 stages
+    # 1 from its slot while the post-fetch writes 3 over it
+    x = torch.randn((2, tiers.host_w1.shape[2]), device="cuda").to(
+        torch.bfloat16)
+    top_i = torch.tensor([[1], [3]], dtype=torch.int32)
+    pr = collab.probe(tiers, 0, top_i, ccfg)
+    assert pr.resident.tolist()[:2] == [True, False]
+    y, staged = collab.execute(tiers, 0, x, torch.ones((2, 1),
+                                                        device="cuda"),
+                               pr, ccfg)
+    tiers, _ = collab.commit(tiers, 0, pr, staged, ccfg)
+    torch.cuda.synchronize()
+    assert torch.equal(staged.w1[0].cpu(), tiers.host_w1[0, 1])
+    assert torch.equal(tiers.slot_w1[0].cpu(), tiers.host_w1[0, 3])
+    assert torch.isfinite(y.float()).all()
+
+
+@pytest.mark.gpu
+def test_host_lane_round_trip_on_card(hopper):
+    """The dispatch buffer's host-lane rows go device->host into pinned
+    memory, through the thread pool and back: y on the card, within one
+    bf16 rounding of the largest output (2^-6, as chip_smoke's layer
+    check) of the device lane's y, the executor ran every miss, and the
+    cache state and slots equal the device lane's."""
+    from repro_torch import hostexec
+    from repro_torch.core import collaborative as collab
+    tiers, ccfg = _pinned_tiers(D=512, F=1024, ways=2)
+    ref, _ = _pinned_tiers(D=512, F=1024, ways=2)
+    ex = hostexec.HostExpertExecutor(*tiers.host, threads=4, fuse_small=1)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rng = np.random.default_rng(12)
+    for _ in range(6):
+        layer = int(rng.integers(0, 2))
+        top_i = torch.from_numpy(np.stack([rng.choice(4, 2, replace=False)
+                                           for _ in range(3)]).astype(
+                                               np.int32)).to("cuda")
+        top_w = torch.rand((3, 2), generator=gen, device="cuda")
+        x = torch.randn((3, 512), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        pr = collab.probe(tiers, layer, top_i, ccfg)
+        misses = int((~pr.resident & (pr.rep_e >= 0)).sum())
+        ran = ex.groups
+        y, tiers, s = collab.collaborative_moe_offloaded(
+            tiers, layer, x, top_i, top_w, ccfg, ex)
+        y_ref, ref, s_ref = collab.collaborative_moe(ref, layer, x, top_i,
+                                                     top_w, ccfg)
+        torch.cuda.synchronize()
+        assert y.device.type == "cuda" and s == s_ref
+        assert ex.groups - ran == misses
+        tol = 2 ** -6 * y_ref.float().abs().max().item()
+        assert (y.float() - y_ref.float()).abs().max().item() <= tol
+        assert torch.equal(tiers.state.tags, ref.state.tags)
+        for a, b in zip(tiers.slots, ref.slots):
+            assert torch.equal(a, b)
+    assert ex.groups > 0
+    ex.close()

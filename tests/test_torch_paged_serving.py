@@ -273,9 +273,14 @@ def test_engine_config_options():
                 dict(page_size=0)):
         with pytest.raises(ValueError):
             EngineConfig(cache=cache, capacity=32, **bad)
-    for unported in (dict(prefetch=True), dict(host_compute=True)):
+    # prefetch and the host lane are ported and combine with paged KV;
+    # the reference's in-graph host backend has no PyTorch meaning
+    for ported in (dict(prefetch=True), dict(host_compute=True)):
+        EngineConfig(cache=cache, capacity=32, kv_paged=True, page_size=8,
+                     **ported)
         with pytest.raises(NotImplementedError):
-            EngineConfig(cache=cache, capacity=32, **unported)
+            EngineConfig(cache=cache, capacity=32, host_backend="jax",
+                         **ported)
 
 
 def test_dense_only_paths_refuse_paged(setup):
