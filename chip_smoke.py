@@ -12,10 +12,11 @@ Phases, in order; any failure exits non-zero:
      context at Mixtral's max_seq_len of 32768 for the attention kernels
      and of 65536 tokens for the SSD scan, ragged shapes), with the
      tolerance printed, and against a second launch on the same inputs
-     (bitwise); at the served and long shapes the times of the
+     (bitwise); at the served, long and other models' shapes
+     (``model:<arch>``) the times of the
      kernel (events around the wrapper call, and the profiler's device
-     time alone), the plain version and the library yardstick (if any),
-     beside the bound its inputs give;
+     time alone), the plain version and the library yardstick (if any;
+     its wall and device time likewise), beside the bound its inputs give;
   4. serve 6 greedy requests through ``repro_torch.build`` at
      Mixtral-8x7B's published widths (d_model 4096, 32/8 heads of 128,
      8 experts top-2 of d_ff 14336, vocab 32000), dense KV. The one cut: 4
@@ -33,32 +34,50 @@ Phases, in order; any failure exits non-zero:
      paper's full configuration: the host lane carries traffic, its served
      MoE layer against the dense plain reference; a profiled decode step
      of each (copies by stream, activation copies, host-lane wall);
-  8. serve 7 requests of 40-96 tokens (3 opening with one 64-token
+  8. the same model, weights and requests served untraced and then with
+     a ``repro_torch.obs.TraceRecorder``: tokens bitwise equal to phase
+     4's; the trace (``chiprun_out/trace_mixtral.json``) must validate with
+     every request's lifecycle; traced and untraced tok/s, event and
+     dropped counts, the mean of each engine and scheduler span;
+  9. serve 7 requests of 40-96 tokens (3 opening with one 64-token
      prefix) plus one fork on the paged-KV + segment-streamed path (page
      size 16, 32-token segments, one per tick, prefix retention 8), same
      model and weights; checks tokens, counters, prefix hits, copy-on-
      write, the fork child against its parent and the page accounting;
-  9. the attention layer functions on the card: paged decode against
+ 10. the attention layer functions on the card: paged decode against
      dense decode over the same KV in permuted pages, paged segment
      (kernel) against the dense segment (plain flash scan);
- 10. where a paged decode step's time goes;
- 11. where a segment-streamed prefill's time goes;
- 12. serve mamba2-370m on the generic path (``repro_torch.models.prefill``
+ 11. where a paged decode step's time goes;
+ 12. where a segment-streamed prefill's time goes;
+ 13. phi35-moe (16 experts top-2, d_ff 6400) and qwen3-moe-30b-a3b (128
+     experts top-8, d_model 2048, d_ff 768) on the collaborative engine at
+     their published widths, 4 layers each (host tiers of 10.1 and 4.8
+     GB), phase 4's requests, seeded random weights: tok/s, hit rate,
+     fetches, each model's MoE layer against the dense plain reference;
+     each host tier is released before the next model;
+ 14. serve mistral-nemo-12b on the generic path at its full published
+     size (12.2 B parameters, 24.5 GB of bf16 weights on the card), seeded
+     random weights: 4 prompts of 1024 tokens, 32 greedy tokens through
+     the flash-decode kernel, 4 more profiled; prefill of S+1 against
+     prefill of S and a decode step;
+ 15. serve mamba2-370m on the generic path (``repro_torch.models.prefill``
      and ``decode_step``, greedy) at its published widths and all 48
      layers, seeded random weights: 4 prompts of 2048 tokens with 64
      generated tokens, then 1 prompt of 1000 (a ragged chunk) with 16;
      every prefill runs the ``ssd_scan`` kernel once per layer;
- 13. one Mamba layer on the card: through the kernel against through the
+ 16. one Mamba layer on the card: through the kernel against through the
      plain scan; prefill of S+1 tokens against prefill of S and a decode
      step, for the layer and for the 48-layer model;
- 14. where a Mamba prefill's and a decode step's time goes;
- 15. the ``kernels`` line (launch counts from the serve phases alone, by
-     phase and summed) and the result line.
+ 17. where a Mamba prefill's and a decode step's time goes;
+ 18. the ``kernels`` line (launch counts from the serve phases alone, by
+     phase and summed; times at the served, long and other models'
+     shapes) and the result line.
 Prints nothing of the result when no GPU is present.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import resource
 import subprocess
@@ -75,13 +94,23 @@ SERVE = dict(requests=6, prompt=(16, 32), new_tokens=16, slots=4)
 # phase 7: prefetch, then prefetch and the CPU miss lane (the paper's full
 # configuration: 8 host threads, small-group fusion up to 4 tokens)
 HOST = dict(host_threads=8, host_fuse_small=4)
-# phase 8: the paged-KV + segment-streamed path. Prompts of 40-96 tokens,
+# phase 9: the paged-KV + segment-streamed path. Prompts of 40-96 tokens,
 # three of them opening with one 64-token prefix (4 full pages of 16)
 PAGED = dict(page_size=16, segment=32, keep_pages=8, slots=4, prompt=(40, 96),
              new_tokens=16, prefix=64, requests=7, shared=(0, 4, 5))
-# phase 12: mamba2-370m's generic path, (batch, prompt, generated tokens):
+# phase 15: mamba2-370m's generic path, (batch, prompt, generated tokens):
 # the served batch, and one prompt with a 232-token ragged chunk
 MAMBA = dict(batches=((4, 2048, 64), (1, 1000, 16)))
+# phase 13: the other MoE models on the collaborative engine at their
+# published widths, 4 layers each (phase 4's requests); the cache covers
+# layers 0-1 with a quarter of each layer's experts, as Mixtral's 2 of 8:
+# 4 of phi35-moe's 16, 32 of qwen3-moe's 128 (also the most experts 4
+# slots x top-8 picks can reach in a step)
+MOE_MODELS = (("phi35-moe", 4), ("qwen3-moe-30b-a3b", 32))
+# phase 14: mistral-nemo-12b on the generic path at its full published
+# size, no cut: (batch, prompt, generated tokens), then profiled steps
+DENSE = dict(arch="mistral-nemo-12b", batch=4, prompt=1024, new_tokens=32,
+             profiled=4)
 
 
 def card_line() -> str:
@@ -180,20 +209,22 @@ def check_kernels(kernels):
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version at {spec}")
                 err = max(err, e)
-            if label in ("served", "long"):
+            if label in ("served", "long") or label.startswith("model:"):
                 ms = time_ms(lambda: wrapper(*args))
                 dev_ms = device_ms(lambda: wrapper(*args))
                 plain_ms = time_ms(lambda: plain(*args), iters=3)
                 lib = k["library"](args) if k["library"] else None
                 lib_ms = time_ms(lib) if lib is not None else None
+                lib_dev_ms = device_ms(lib) if lib is not None else None
                 bound_ms, by = bound(*k["work"](args, got))
                 results.setdefault(name, {})[label] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                    device_ms=dev_ms)
+                    device_ms=dev_ms, library_device_ms=lib_dev_ms)
                 print(f"[kernel] {name} {label}: {ms:.4f} ms, device "
                       f"{dev_ms} ms (plain "
-                      f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                      f"{plain_ms:.4f} ms, library {lib_ms} ms, device "
+                      f"{lib_dev_ms} ms, bound "
                       f"{bound_ms:.4f} ms by {by}: "
                       f"{100 * bound_ms / ms:.1f}% of roofline)")
             del args, got, want
@@ -209,11 +240,32 @@ def h2d_rate_gbps(nbytes: int = 1 << 30) -> float:
     return nbytes / (ms * 1e-3) / 1e9
 
 
-def serve():
-    """Phase 4: the port's main path at Mixtral's full widths."""
+def _serve_requests(sched, vocab: int):
+    """Phase 4's request stream (seed 0: ``SERVE``'s count, prompt lengths
+    and budget) through ``sched``, timed from a synchronized card to the
+    last token, the kernels' launch counts reset first. Returns (outputs
+    by request, seconds, launch counts)."""
     import numpy as np
     import torch
-    from repro_torch import build, kernels
+    from repro_torch import kernels
+    lo, hi = SERVE["prompt"]
+    rng = np.random.default_rng(0)
+    for _ in range(SERVE["requests"]):
+        plen = int(rng.integers(lo, hi + 1))
+        sched.submit(rng.integers(0, vocab, plen),
+                     max_new_tokens=SERVE["new_tokens"])
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = sched.run()
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, kernels.launches()
+
+
+def serve():
+    """Phase 4: the port's main path at Mixtral's full widths."""
+    import torch
+    from repro_torch import build
     from repro_torch.config import get_config
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
@@ -221,7 +273,7 @@ def serve():
           f"{LAYERS}: d_model={cfg.d_model} heads={cfg.num_heads}/"
           f"{cfg.num_kv_heads}x{cfg.head_dim} experts={cfg.moe.num_experts} "
           f"top{cfg.moe.top_k} d_ff={cfg.moe.d_ff} vocab={cfg.vocab_size}")
-    lo, hi = SERVE["prompt"]
+    hi = SERVE["prompt"][1]
     t0 = time.perf_counter()
     engine, sched = build(
         cfg, cache=dict(num_indexes=2, num_ways=2, policy="lru"),
@@ -235,18 +287,8 @@ def serve():
     print(f"[serve] built in {time.perf_counter() - t0:.1f} s: host tier "
           f"{host_gb:.2f} GB pinned={engine.tiers.host_w1.is_pinned()}, "
           f"slot buffer {slot_gb:.2f} GB on {engine.tiers.slot_w1.device}")
-    rng = np.random.default_rng(0)
-    for _ in range(SERVE["requests"]):
-        plen = int(rng.integers(lo, hi + 1))
-        sched.submit(rng.integers(0, cfg.vocab_size, plen),
-                     max_new_tokens=SERVE["new_tokens"])
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    outs = sched.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = kernels.launches()
+    outs, dt, launches = _serve_requests(sched, cfg.vocab_size)
     st = sched.stats
     total = sum(len(o) for o in outs.values())
     print(f"[serve] served {st.requests_finished} requests / {total} tokens "
@@ -322,7 +364,7 @@ def _device_ms(ev) -> float:
 
 
 def profile_decode(engine, label: str, steps: int = 4):
-    """Phases 6, 7 and 10: where a decode step's time goes. Four requests
+    """Phases 6, 7 and 11: where a decode step's time goes. Four requests
     decode together (no admission in the window); ``torch.profiler`` sums
     the device time by kernel and copy, against the window's wall time,
     and splits the copies by stream. With a host lane, its wall (the
@@ -420,11 +462,11 @@ def serve_prefetch(params, base):
     landed would show here. Returns (launches by run, profiles)."""
     import numpy as np
     import torch
-    from repro_torch import build, kernels
+    from repro_torch import build
     from repro_torch.config import get_config
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
-    lo, hi = SERVE["prompt"]
+    hi = SERVE["prompt"][1]
     launches, profiles = {}, {}
     for run, extra in (("prefetch", {}), ("host", dict(host_compute=True,
                                                        **HOST))):
@@ -434,18 +476,7 @@ def serve_prefetch(params, base):
                          capacity=hi + SERVE["new_tokens"] + 1,
                          prefill_chunk=8, prefetch=True, **extra),
             seed=0, params=params, device="cuda")
-        rng = np.random.default_rng(0)
-        for _ in range(SERVE["requests"]):
-            plen = int(rng.integers(lo, hi + 1))
-            sched.submit(rng.integers(0, cfg.vocab_size, plen),
-                         max_new_tokens=SERVE["new_tokens"])
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = sched.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches[run] = kernels.launches()
+        outs, dt, launches[run] = _serve_requests(sched, cfg.vocab_size)
         st = sched.stats
         total = sum(len(o) for o in outs.values())
         same = sum(int(np.sum(outs[r] == base["outs"][r])) for r in outs)
@@ -502,6 +533,23 @@ def serve_prefetch(params, base):
 def _peak_rss_gb() -> float:
     """The process's peak resident host memory (Linux: ru_maxrss in KB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _rss_gb() -> float:
+    """The process's resident host memory now (Linux: /proc/self/statm)."""
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return pages * resource.getpagesize() / 1e9
+
+
+def _release_host_tier() -> None:
+    """Return freed pinned host blocks to the system: PyTorch's caching
+    host allocator keeps them for reuse otherwise."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
 
 
 def check_host_layer(engine):
@@ -599,7 +647,7 @@ def _report(prof, wall_ms: float, units: int, label: str, unit: str):
 
 
 def profile_segment(engine, segments: int = 2):
-    """Phase 11: where a segment-streamed prefill's time goes. One
+    """Phase 12: where a segment-streamed prefill's time goes. One
     request's prompt streams ``segments`` 32-token segments through the
     paged engine (forward with the paged-prefill kernel, KV into the pool,
     warm) under ``torch.profiler``; the prefill MoE stages each layer's
@@ -654,7 +702,7 @@ def _paged_requests(vocab: int):
 
 
 def serve_paged(params):
-    """Phase 8: the paged-KV + segment-streamed path at Mixtral's widths
+    """Phase 9: the paged-KV + segment-streamed path at Mixtral's widths
     (the same 4 layers and weights as phase 4: the pinned host tier is
     shared, not pinned twice). Once the queue is empty, a live, warmed
     request is forked into a free slot at a length inside a page, so its
@@ -751,7 +799,7 @@ def serve_paged(params):
 
 
 def check_attention(engine):
-    """Phase 9: the layer-level attention functions on the card, kernel
+    """Phase 10: the layer-level attention functions on the card, kernel
     against kernel over the same KV: ``decode_attention_paged`` (paged
     flash-decode) against ``decode_attention`` (flash-decode) with the
     cache laid out in permuted pages, and ``segment_attention_paged``
@@ -817,8 +865,243 @@ def check_attention(engine):
                          "dense segment")
 
 
+def _span_means(rec):
+    """{(track, name): (count, mean ms)} of the complete spans on the
+    engine and scheduler tracks."""
+    acc = {}
+    for ev in rec.events():
+        if ev.kind == "X" and ev.track in ("engine", "sched"):
+            n, t = acc.get((ev.track, ev.name), (0, 0))
+            acc[(ev.track, ev.name)] = (n + 1, t + ev.dur_ns)
+    return {k: (n, t / n / 1e6) for k, (n, t) in sorted(acc.items())}
+
+
+def serve_traced(params, base):
+    """Phase 8: phase 4's model, weights and requests served twice more,
+    untraced and then with a ``TraceRecorder``: both runs' tokens must
+    equal phase 4's bitwise (the recorder reads clocks and counters only).
+    The trace goes to ``chiprun_out/trace_mixtral.json`` and must pass the
+    Chrome-trace validator with every request's queued / prefill / decode
+    spans. Returns the traced run's launch counts."""
+    import numpy as np
+    from repro_torch import build
+    from repro_torch.config import get_config
+    from repro_torch.obs import (TraceRecorder, validate_chrome_trace,
+                                 write_chrome_trace)
+    from repro_torch.obs.export import LIFECYCLE_SPANS, lifecycle_coverage
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
+    hi = SERVE["prompt"][1]
+    tok_s, launches = {}, None
+    for run in ("untraced", "traced"):
+        rec = TraceRecorder() if run == "traced" else None
+        _, sched = build(
+            cfg, cache=dict(num_indexes=2, num_ways=2, policy="lru"),
+            serving=dict(max_batch=SERVE["slots"],
+                         capacity=hi + SERVE["new_tokens"] + 1,
+                         prefill_chunk=8),
+            seed=0, params=params, device="cuda", recorder=rec)
+        outs, dt, launches = _serve_requests(sched, cfg.vocab_size)
+        total = sum(len(o) for o in outs.values())
+        tok_s[run] = total / dt
+        if any(not np.array_equal(outs[r], base["outs"][r]) for r in outs):
+            raise SystemExit(f"the {run} run's tokens differ from phase 4's")
+        print(f"[trace] {run}: {total} tokens in {dt:.3f} s "
+              f"({tok_s[run]:.3f} tok/s wall), tokens equal to phase 4's")
+    path = ROOT / "chiprun_out" / "trace_mixtral.json"
+    path.parent.mkdir(exist_ok=True)
+    doc = write_chrome_trace(rec, str(path))
+    problems = validate_chrome_trace(doc)
+    cover = lifecycle_coverage(doc)
+    for rid in outs:
+        missing = set(LIFECYCLE_SPANS) - cover.get(f"req:{rid}", set())
+        if missing:
+            problems.append(f"req:{rid} misses {sorted(missing)}")
+    print(f"[trace] {len(rec)} events ({rec.dropped} dropped) -> "
+          f"{path.relative_to(ROOT)}; traced {tok_s['traced']:.3f} tok/s "
+          f"against untraced {tok_s['untraced']:.3f}")
+    for (track, name), (n, ms) in _span_means(rec).items():
+        print(f"[trace]   {track} {name}: {n} spans, mean {ms:.3f} ms")
+    if problems or rec.dropped:
+        raise SystemExit(f"the trace is not valid: {problems[:5]}, "
+                         f"{rec.dropped} dropped")
+    return launches
+
+
+def serve_moe_models():
+    """Phase 13: phi35-moe and qwen3-moe-30b-a3b on the collaborative
+    engine at their published widths, 4 layers each, seeded random
+    weights, phase 4's requests; each model's served MoE layer against
+    the dense plain reference (phase 5's check). Each model's pinned host
+    tier is released before the next. Returns {arch: launch counts}."""
+    import torch
+    from repro_torch import build
+    from repro_torch.config import get_config
+
+    hi = SERVE["prompt"][1]
+    out = {}
+    for arch, ways in MOE_MODELS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=LAYERS)
+        m = cfg.moe
+        t0 = time.perf_counter()
+        engine, sched = build(
+            cfg, cache=dict(num_indexes=2, num_ways=ways, policy="lru"),
+            serving=dict(max_batch=SERVE["slots"],
+                         capacity=hi + SERVE["new_tokens"] + 1,
+                         prefill_chunk=8),
+            seed=0, device="cuda")
+        torch.cuda.synchronize()
+        host_gb = sum(t.numel() * t.element_size()
+                      for t in engine.tiers.host) / 1e9
+        slot_gb = sum(t.numel() * t.element_size()
+                      for t in engine.tiers.slots) / 1e9
+        full = get_config(arch).num_layers
+        print(f"[{arch}] published widths, num_layers cut {full} -> "
+              f"{LAYERS}: d_model={cfg.d_model} heads="
+              f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} experts="
+              f"{m.num_experts} top{m.top_k} d_ff={m.d_ff} vocab="
+              f"{cfg.vocab_size}; cache N=2 M={ways}; host tier "
+              f"{host_gb:.2f} GB, slot buffer {slot_gb:.2f} GB, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        outs, dt, out[arch] = _serve_requests(sched, cfg.vocab_size)
+        st = sched.stats
+        total = sum(len(o) for o in outs.values())
+        print(f"[{arch}] served {st.requests_finished} requests / {total} "
+              f"tokens in {dt:.3f} s ({total / dt:.3f} tok/s wall, "
+              f"{st.steps} decode steps); cache hit rate {st.hit_rate:.4f} "
+              f"(hits={st.hits} accesses={st.accesses} fetches="
+              f"{st.fetched_experts}); tpot_ms p50={st.tpot_ms_p50:.1f}; "
+              f"launches {out[arch]}")
+        if st.requests_finished != SERVE["requests"]:
+            raise SystemExit(f"{arch}: not every request finished")
+        for rid, o in outs.items():
+            if len(o) != SERVE["new_tokens"] or o.min() < 0 \
+                    or o.max() >= cfg.vocab_size:
+                raise SystemExit(f"{arch} request {rid}: bad output "
+                                 f"{o.tolist()}")
+        if st.accesses != st.tokens * m.top_k * cfg.num_layers \
+                or st.hits == 0 or st.fetched_experts == 0:
+            raise SystemExit(f"{arch}: accesses miscounted, or one tier "
+                             f"carried no traffic")
+        for name in ("swiglu_gmm", "gmm", "flash_decode"):
+            if out[arch][name] <= 0:
+                raise SystemExit(f"{arch}: kernel {name} was never "
+                                 f"launched")
+        check_layer(engine)
+        del engine, sched
+        _release_host_tier()
+        print(f"[{arch}] host tier released: host RSS {_rss_gb():.2f} GB, "
+              f"peak {_peak_rss_gb():.2f} GB")
+    return out
+
+
+def serve_dense():
+    """Phase 14: the generic path at mistral-nemo-12b's full published
+    size (40 layers, d_model 5120, 32/8 heads of 128, d_ff 14336, vocab
+    131072; 12.2 B parameters, bf16 on the card), seeded random weights:
+    4 prompts of 1024 tokens, prefill with room for the generated tokens,
+    then greedy decode steps through the flash-decode kernel, and where
+    four more decode steps' time goes (``torch.profiler``); then prefill
+    of S+1 tokens against prefill of S and one decode step. Returns the
+    launch counts of the timed run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels, models
+    from repro_torch.config import get_config
+
+    cfg = get_config(DENSE["arch"])
+    B, S, n = DENSE["batch"], DENSE["prompt"], DENSE["new_tokens"]
+    prof_steps = DENSE["profiled"]
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    count = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    print(f"[dense] {cfg.name} at its published size: layers="
+          f"{cfg.num_layers} d_model={cfg.d_model} heads={cfg.num_heads}/"
+          f"{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size}: {count / 1e9:.3f} B parameters, {gb:.2f} GB "
+          f"on the card, drawn in {time.perf_counter() - t0:.1f} s")
+    warm = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+    _, st = models.prefill(params, {"tokens": warm}, cfg, capacity=65)
+    models.decode_step(params, st, {"tokens": warm[:, :1]}, cfg)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(9)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = models.prefill(params, {"tokens": prompt}, cfg,
+                                   capacity=S + n + prof_steps)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = torch.isfinite(logits).all()
+    outs = [tok]
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        logits, state = models.decode_step(params, state, {"tokens": tok},
+                                           cfg)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, 0].argmax(-1)[:, None]
+        outs.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    launches = kernels.launches()
+    out = torch.cat(outs, dim=1).cpu()
+    print(f"[dense] batch {B} x prompt {S}: prefill {prefill_ms:.3f} ms "
+          f"({B * S / prefill_ms * 1e3:.1f} prompt tok/s), decode "
+          f"{step_ms:.3f} ms/step ({B / step_ms * 1e3:.3f} tok/s), {n} "
+          f"tokens a row; peak HBM "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{launches}; first row {out[0, :8].tolist()}")
+    if tuple(out.shape) != (B, n) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size or not bool(finite):
+        raise SystemExit("dense: tokens outside the vocab or non-finite "
+                         "logits")
+    if int(state["pos"]) != S + n - 1:
+        raise SystemExit("dense: the state's position is wrong")
+    if launches["flash_decode"] != cfg.num_layers * (n - 1):
+        raise SystemExit(f"flash_decode launched {launches['flash_decode']} "
+                         f"times, not once per layer and decode step")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(prof_steps):
+            logits, state = models.decode_step(params, state,
+                                               {"tokens": tok}, cfg)
+            tok = logits[:, 0].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[profile] {cfg.name} decode: {prof_steps} steps at batch {B}:")
+    _report(prof, wall_ms, prof_steps, "dense decode", "step")
+    ops = sum(e.count for e in prof.key_averages() if _device_ms(e) > 0)
+    print(f"[profile] dense decode: {ops / prof_steps:.0f} device operations "
+          f"a step")
+    del state, logits
+    toks = prompt[:1, :S // 2 + 1]
+    full, _ = models.prefill(params, {"tokens": toks}, cfg)
+    _, st = models.prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                           capacity=S // 2 + 1)
+    step, _ = models.decode_step(params, st, {"tokens": toks[:, -1:]}, cfg)
+    # 40 layers, each adding to the residual stream an output within about
+    # two bf16 roundings: 2^-4 of the largest logit, as phase 16's
+    _close(f"{cfg.name}: prefill {S // 2} then decode vs prefill "
+           f"{S // 2 + 1} (logits, {cfg.num_layers} layers)", step[:, 0],
+           full[:, 0], 2 ** -4)
+    del params, st, full, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_mamba():
-    """Phase 12: the generic serve path (``repro_torch.models.prefill`` and
+    """Phase 15: the generic serve path (``repro_torch.models.prefill`` and
     ``decode_step``, greedy) at mamba2-370m's published widths and all 48
     layers, seeded random weights. Each batch: one prefill through the
     ``ssd_scan`` kernel (one launch per layer), then greedy decode steps
@@ -912,7 +1195,7 @@ def _close(what, got, want, rel):
 
 
 def check_mamba(params, cfg):
-    """Phase 13: one Mamba layer on the card, at the served shape: the
+    """Phase 16: one Mamba layer on the card, at the served shape: the
     layer through the kernel against the same layer through the plain scan
     (``ssd_scan_plain``), and prefill of S+1 tokens against prefill of S
     tokens and one decode step (the kernel's final state and the conv
@@ -970,7 +1253,7 @@ def check_mamba(params, cfg):
 
 
 def profile_mamba(params, cfg, steps: int = 4):
-    """Phase 14: where a Mamba prefill's (served batch) and a decode
+    """Phase 17: where a Mamba prefill's (served batch) and a decode
     step's time goes (``torch.profiler``)."""
     import numpy as np
     import torch
@@ -1042,12 +1325,17 @@ def main() -> int:
         print(f"[compare] {run}: {p['step_ms']:.3f} ms/step, idle "
               f"{p['idle']:.4f}, host lane {p['host_ms']:.3f} ms/step, "
               + ", ".join(f"{k} {v:.3f}" for k, v in p["streams"].items()))
+    traced_launches = serve_traced(engine.params, base)
     paged, paged_launches = serve_paged(engine.params)
     check_attention(paged)
     profile_decode(paged, "paged")
     profile_segment(paged)
     del engine, paged
-    torch.cuda.empty_cache()
+    _release_host_tier()
+    print(f"[serve] Mixtral's host tier released: host RSS {_rss_gb():.2f} "
+          f"GB, peak {_peak_rss_gb():.2f} GB")
+    moe_launches = serve_moe_models()
+    dense_launches_generic = serve_dense()
     params, cfg, ssm_launches = serve_mamba()
     check_mamba(params, cfg)
     profile_mamba(params, cfg)
@@ -1057,14 +1345,20 @@ def main() -> int:
         by_phase = {"dense": dense_launches[name],
                     "prefetch": pf_launches["prefetch"][name],
                     "host": pf_launches["host"][name],
+                    "traced": traced_launches[name],
                     "paged": paged_launches[name],
+                    **{arch: moe_launches[arch][name]
+                       for arch, _ in MOE_MODELS},
+                    DENSE["arch"]: dense_launches_generic[name],
                     "ssm": ssm_launches[name]}
         rows.append(dict(
             name=name, route="cuda",
             source=str(Path(k["source"]).relative_to(ROOT)),
             replaces=k["replaces"], launches=sum(by_phase.values()),
             launches_by_phase=by_phase, **measured[name]["served"],
-            long=measured[name].get("long")))
+            long=measured[name].get("long"),
+            models={label[6:]: m for label, m in measured[name].items()
+                    if label.startswith("model:")}))
         if rows[-1]["launches"] <= 0:
             raise SystemExit(f"kernel {name} was launched in no serve "
                              f"phase")

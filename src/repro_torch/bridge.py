@@ -22,7 +22,7 @@ def _is_bf16(a: np.ndarray) -> bool:
     return a.dtype.name == "bfloat16"
 
 
-def tensor_from_numpy(a: np.ndarray, device="cpu",
+def tensor_from_numpy(a: np.ndarray, device="cuda",
                       pin: bool = False) -> torch.Tensor:
     a = np.array(a, copy=True, order="C")    # writable, owned by torch
     if _is_bf16(a):
@@ -44,7 +44,7 @@ def tensor_to_numpy(t: torch.Tensor, bf16_dtype=None) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Reference param tree (nested dicts of numpy arrays) -> port params."""
     dev = torch.device(device)
 

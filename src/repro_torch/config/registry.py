@@ -9,8 +9,9 @@ from .base import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 # Modules under repro_torch.configs that register an architecture.
-_CONFIG_MODULES = ["mixtral_8x7b", "mamba2_370m", "smollm_360m",
-                   "jamba_v0_1_52b"]
+_CONFIG_MODULES = ["mixtral_8x7b", "phi35_moe", "qwen3_moe_30b_a3b",
+                   "mamba2_370m", "smollm_360m", "mistral_nemo_12b",
+                   "qwen2_72b", "jamba_v0_1_52b"]
 
 
 def register(name: str):

@@ -1,7 +1,7 @@
 """smollm-360m [dense]: 32L d_model=960 15H (GQA kv=5) d_ff=2560 vocab=49152.
 
-Llama-architecture small model. Registered so that ``--arch`` names it;
-its dense-FFN stack is not served by the port yet (ROADMAP slice 6).
+Llama-architecture small model. Served on the generic path (attention +
+dense SwiGLU FFN, tied embeddings). [hf:HuggingFaceTB/SmolLM-135M; hf]
 """
 from repro_torch.config import ModelConfig, register
 

@@ -4,9 +4,12 @@ that computes the same function: what ``chip_smoke.py`` reads from
 :data:`repro_torch.kernels.ALL`, the same way for every kernel.
 
 Cases are ``(label, spec)``: ``served`` is the shape the serving path
-gives the kernel in ``chip_smoke.py``'s serve phases (timed, and the
-numbers of the ``kernels`` line), ``long`` a long context (timed: 32768
-tokens, Mixtral's ``max_seq_len``, for attention; 65536 for the SSD scan),
+gives the kernel in ``chip_smoke.py``'s Mixtral serve phases (timed, and
+the numbers of the ``kernels`` line), ``long`` a long context (timed:
+32768 tokens, Mixtral's ``max_seq_len``, for attention; 65536 for the SSD
+scan), ``model:<arch>`` the shape another served model gives it (timed:
+phi35-moe's and qwen3-moe's decode steps, mistral-nemo's, smollm's and
+qwen2-72b's generic decode at 4 x 1024 prompt tokens plus 32 decoded),
 ``ragged`` shapes that exercise the masked edges (checked only). Inputs
 are drawn on the card from the caller's generator; page tables from
 numpy, seeded. A wrapper returns one tensor or a tuple of them.
@@ -26,6 +29,7 @@ import torch
 
 MIXTRAL_ATTN = dict(H=32, Hk=8, hd=128)      # Mixtral-8x7B's attention widths
 LONG = 32768                                 # Mixtral-8x7B's max_seq_len
+GENERIC_CAP = 1024 + 32       # the generic dense decode: prompt + generated
 
 
 def _nbytes(*ts) -> int:
@@ -46,6 +50,14 @@ MOE_CASES = [("served", (8, 8, 4096, 14336)),     # G, C, D, F on decode
              ("ragged", (1, 3, 36, 52))]
 
 
+# the decode step's dispatch buffer of the other served MoE models, every
+# pick its own group (G = C = slots x top-k, at most the experts): 4 slots
+# of phi35-moe (16 experts top-2, d_ff 6400) and of qwen3-moe (128 experts
+# top-8, d_model 2048, d_ff 768)
+MODEL_MOE_CASES = [("model:phi35-moe", (8, 8, 4096, 6400)),
+                   ("model:qwen3-moe-30b-a3b", (32, 32, 2048, 768))]
+
+
 # gmm: the same, plus the ring kernel's edges: C = 13 and C = 64 at the
 # down-projection's K and N (two and eight n-tiles a block), a K of 160
 # (the last 64-row tile short), K and N not multiples of 8 (the scalar-load
@@ -53,7 +65,7 @@ MOE_CASES = [("served", (8, 8, 4096, 14336)),     # G, C, D, F on decode
 GMM_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
                          ("ragged", (2, 64, 4096, 14336)),
                          ("ragged", (1, 8, 4096, 160)),
-                         ("ragged", (2, 5, 300, 1001))]
+                         ("ragged", (2, 5, 300, 1001))] + MODEL_MOE_CASES
 
 
 # swiglu_gmm: the same, plus the ring kernel's edges at the served K and N:
@@ -62,7 +74,7 @@ GMM_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
 SWIGLU_CASES = MOE_CASES + [("ragged", (2, 13, 4096, 14336)),
                             ("ragged", (2, 64, 4096, 14336)),
                             ("ragged", (1, 8, 160, 14336)),
-                            ("ragged", (2, 5, 300, 1001))]
+                            ("ragged", (2, 5, 300, 1001))] + MODEL_MOE_CASES
 
 
 def swiglu_inputs(shape, gen):
@@ -119,6 +131,20 @@ FLASH_DECODE_CASES = [
     # splits 7 and 3, a row whose keys end in split 0, pos = 0
     ("ragged", dict(B=4, S=5000, pos=[4999, 17, 2500, 0], window=300,
                     **MIXTRAL_ATTN)),
+    # the other served models' decode attention: qwen3-moe's engine phase
+    # (4 slots at the dense phase's capacity, group 8), and the generic
+    # path's last decode step of 4 x 1024-token prompts with 32 generated
+    # (capacity 1056): mistral-nemo (32/8 heads of 128), smollm (15/5 of
+    # 64, group 3), qwen2-72b (64/8 of 128)
+    ("model:qwen3-moe-30b-a3b", dict(B=4, S=49, pos=[20, 35, 48, 31],
+                                     window=-1, H=32, Hk=4, hd=128)),
+    ("model:mistral-nemo-12b", dict(B=4, S=GENERIC_CAP,
+                                    pos=[GENERIC_CAP - 1] * 4, window=-1,
+                                    H=32, Hk=8, hd=128)),
+    ("model:smollm-360m", dict(B=4, S=GENERIC_CAP, pos=[GENERIC_CAP - 1] * 4,
+                               window=-1, H=15, Hk=5, hd=64)),
+    ("model:qwen2-72b", dict(B=4, S=GENERIC_CAP, pos=[GENERIC_CAP - 1] * 4,
+                             window=-1, H=64, Hk=8, hd=128)),
 ]
 
 

@@ -1,15 +1,20 @@
 """Serving entry point, on the GPU (counterpart of the reference's
 ``launch/serve.py``): the collaborative two-tier MoE engine with continuous
-batching for a homogeneous MoE stack, the generic prefill + greedy decode
-loop for any other (the attention-free Mamba2 stack today).
+batching for a homogeneous MoE stack (mixtral-8x7b, phi35-moe,
+qwen3-moe-30b-a3b), the generic prefill + greedy decode loop for any other
+(the dense-FFN attention stacks smollm-360m, mistral-nemo-12b and
+qwen2-72b, and the attention-free Mamba2 stack).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
         [--concurrency 4 --requests 8] [--temperature 0.8 --top-p 0.95] \
         [--kv-paged --page-size 16 --prefill-segment 32] \
         [--prefetch --prefetch-min-prob 0.2] \
-        [--host-compute --host-threads 8 --host-fuse-small 4] [--device cpu]
+        [--host-compute --host-threads 8 --host-fuse-small 4] \
+        [--trace-out TRACE.json] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --batch 2 --prompt 40 --tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
@@ -18,10 +23,18 @@ weights; requests, and the generic path's prompt batch, drawn from
 ``jax.random``). ``--prefetch`` (or ``--prefetch-min-prob`` > 0) turns on
 cross-layer speculative prefetch, ``--host-compute`` the CPU miss lane
 (``--host-threads``, ``--host-fuse-small``). ``--host-backend jax`` (the
-reference's in-graph lane) has no PyTorch meaning and is an error; the
-flag of an option the port does not run yet (``--trace-out``: tracing)
-is accepted and raises when set. Prints tokens/s and, on the engine, the
-paper's cache, prefetch and host-lane counters.
+reference's in-graph lane) has no PyTorch meaning and is an error.
+``--trace-out PATH`` records the engine run with a
+:class:`repro_torch.obs.TraceRecorder` and writes it as Chrome trace-event
+JSON (check it with ``python -m repro_torch.obs.export PATH
+--require-lifecycle``; collaborative path only, as in the reference).
+Prints tokens/s and, on the engine, the paper's cache, prefetch and
+host-lane counters.
+
+The generic path's decode state holds ``--prompt + --tokens`` KV
+positions (``prefill(..., capacity=)``); the reference's keeps the
+prompt's length, so its decode steps past the prompt overwrite the last
+cache slot.
 """
 from __future__ import annotations
 
@@ -33,10 +46,8 @@ import torch
 
 from repro_torch.config import get_config, reduced
 from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.obs import TraceRecorder, write_chrome_trace
 from repro_torch.serving import SamplingParams, build
-
-# flags of unported options: (argparse dest, value that means "off")
-UNPORTED_FLAGS = {"trace_out": None}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,16 +100,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="page pool size (default: dense-equivalent "
                          "slots*capacity/page_size)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(request lifecycles, step phases, lane "
+                         "counters; collaborative path only)")
     ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
                     help="print a latency summary every N scheduler ticks")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    for dest, off in UNPORTED_FLAGS.items():
-        if getattr(args, dest) != off:
-            ap.error(f"--{dest.replace('_', '-')} is not ported to "
-                     f"repro_torch yet")
     if args.host_backend == "jax":
         ap.error("--host-backend jax has no PyTorch meaning: the reference's "
                  "in-graph lane is --host-compute off with the dispatch "
@@ -125,7 +135,7 @@ def serve_generic(cfg, args) -> None:
     prompt = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt))
     logits, state = prefill(params, {"tokens": torch.as_tensor(
-        prompt, device=dev)}, cfg)
+        prompt, device=dev)}, cfg, capacity=args.prompt + args.tokens)
     tok = logits[:, -1].argmax(-1)[:, None]
     outs = [tok]
     t0 = time.time()
@@ -169,6 +179,7 @@ def main(argv=None) -> None:
              if args.prefill_segment else "")
           + (f" kv_paged(page_size={args.page_size})"
              if args.kv_paged else ""))
+    recorder = TraceRecorder() if args.trace_out else None
     _, sched = build(
         cfg, cache=dict(num_indexes=n, num_ways=args.ways,
                         policy=args.policy),
@@ -186,7 +197,8 @@ def main(argv=None) -> None:
                      kv_paged=args.kv_paged, page_size=args.page_size,
                      kv_pages=args.kv_pages,
                      prefix_keep_pages=args.prefix_keep_pages),
-        seed=args.seed, max_queue=args.max_queue, device=args.device)
+        seed=args.seed, max_queue=args.max_queue, device=args.device,
+        recorder=recorder)
     rng = np.random.default_rng(args.seed)
     for r in range(R):
         plen = int(rng.integers(max(args.prompt // 2, 1), args.prompt + 1))
@@ -250,6 +262,10 @@ def main(argv=None) -> None:
     print(f"  latency: ttft_ms p50={stats.ttft_ms_p50:.1f} "
           f"p99={stats.ttft_ms_p99:.1f}, tpot_ms p50={stats.tpot_ms_p50:.2f} "
           f"p99={stats.tpot_ms_p99:.2f}")
+    if args.trace_out:
+        write_chrome_trace(recorder, args.trace_out)
+        print(f"  trace: {len(recorder)} events ({recorder.dropped} "
+              f"dropped) -> {args.trace_out}")
 
 
 if __name__ == "__main__":

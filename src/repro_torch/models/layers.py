@@ -1,6 +1,7 @@
-"""Shared layers: RMSNorm, RoPE, embeddings (counterpart of the reference's
-``models/layers.py``). Compute dtype is bf16; normalisation and rotary
-statistics are taken in fp32, as in the reference."""
+"""Shared layers: RMSNorm, RoPE, the dense SwiGLU FFN, embeddings
+(counterpart of the reference's ``models/layers.py``). Compute dtype is
+bf16; normalisation and rotary statistics are taken in fp32, as in the
+reference."""
 from __future__ import annotations
 
 import math
@@ -36,6 +37,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
         return t.to(x.dtype)
     sig = r(1.0 / r(1.0 + r(torch.exp(-x.float())).float()).float())
     return x * sig
+
+
+def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """The dense SwiGLU FFN, ``silu(x @ w1) * (x @ w3) @ w2``, with the
+    reference's rounding points: each product rounds once to bf16, silu
+    rounds as :func:`silu` does, the gate times the up projection rounds
+    once. The reference computes it outside any Pallas kernel, as plain
+    matrix products here."""
+    h = silu(mm(x, p["w1"])) * mm(x, p["w3"])
+    return mm(h, p["w2"])
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor,

@@ -1,10 +1,12 @@
 """Decoder-only LM assembly, homogeneous stacks (counterpart of the
 reference's ``models/transformer.py``).
 
-Two stacks run here: the attention+MoE stack the collaborative engine
-serves, and the attention-free Mamba2 stack of the generic serve path.
-Any other stack (attention + dense FFN, hybrid, encoder-decoder, the
-vlm/audio front ends) raises ``NotImplementedError`` (ROADMAP slice 6).
+Three stacks run here: the attention+MoE stack the collaborative engine
+serves, and, on the generic serve path, the attention + dense SwiGLU FFN
+stack (smollm, mistral-nemo, qwen2 with its QKV biases) and the
+attention-free Mamba2 stack. Any other stack (hybrid, encoder-decoder,
+the vlm/audio front ends) raises ``NotImplementedError`` (ROADMAP slice
+6).
 
 The parameter tree mirrors the reference's scan-stacked layout: every
 per-layer leaf under ``params["scan"]["s0"]`` carries a leading ``[L]``
@@ -13,10 +15,12 @@ so the weight bridge maps leaf to leaf. The expert tables are the
 engine's host tier: they live in host memory (pinned when the model runs
 on a GPU); everything else lives on the compute device.
 
-``backbone`` runs the MoE stack in prefill and segment mode (with the
-routing trace the cache-warming replay consumes; its decode step is the
-engine's, :mod:`repro_torch.serving.engine`) and the Mamba stack in
-prefill and decode mode.
+``backbone`` runs the attention stacks in prefill and segment mode (the
+MoE stack with the routing trace the cache-warming replay consumes) and
+the dense stack also in decode mode, scored by the flash-decode kernel
+(the MoE stack's decode step is the engine's,
+:mod:`repro_torch.serving.engine`); the Mamba stack runs in prefill and
+decode mode.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from repro_torch.config import ModelConfig
 from . import attention as attn
 from . import ssm
-from .layers import dense_init, embed_lookup, logits_from_embed, rmsnorm
+from .layers import (dense_init, embed_lookup, ffn_apply, logits_from_embed,
+                     rmsnorm)
 from .moe import moe_apply, route
 
 Params = Dict[str, Any]
@@ -60,7 +65,8 @@ def _slot_has_ffn(cfg: ModelConfig, slot: Slot) -> bool:
 
 
 def stack_kind(cfg: ModelConfig) -> str:
-    """``"moe"`` for a homogeneous attention+MoE stack, ``"mamba"`` for an
+    """``"moe"`` for a homogeneous attention+MoE stack, ``"dense"`` for a
+    homogeneous attention stack with a dense FFN, ``"mamba"`` for an
     attention-free Mamba stack without FFN; raises ``NotImplementedError``
     (naming the ROADMAP slice) for any stack the port cannot run yet."""
     if cfg.is_encdec:
@@ -73,12 +79,14 @@ def stack_kind(cfg: ModelConfig) -> str:
     if len(slots) == 1 and not R:
         if slots[0].kind == "attn" and slots[0].is_moe:
             return "moe"
+        if slots[0].kind == "attn" and cfg.d_ff > 0:
+            return "dense"
         if slots[0].kind == "mamba" and not _slot_has_ffn(cfg, slots[0]):
             return "mamba"
     raise NotImplementedError(
-        f"{cfg.name}: the port runs homogeneous attention+MoE stacks and "
-        f"attention-free Mamba stacks; this {cfg.family} stack (attention "
-        f"with a dense FFN, or a hybrid) is ROADMAP slice 6")
+        f"{cfg.name}: the port runs homogeneous attention stacks (MoE or "
+        f"dense FFN) and attention-free Mamba stacks; this {cfg.family} "
+        f"stack (a hybrid or interleaved period) is ROADMAP slice 6")
 
 
 def homogeneous_slot(cfg: ModelConfig) -> Slot:
@@ -139,16 +147,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                       for k in layers[0]}}}
         return params
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    E, F = cfg.moe.num_experts, cfg.moe.d_ff
-    params["scan"] = {"s0": {
-        "ln1": torch.ones((L, D), device=dev),
-        "attn": {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
-                 "wv": stacked((D, Hk * hd)), "wo": stacked((H * hd, D))},
-        "ln2": torch.ones((L, D), device=dev),
-        "moe": {"router": stacked((D, E), torch.float32),
-                "w1": expert_table((D, F)), "w3": expert_table((D, F)),
-                "w2": expert_table((F, D))},
-    }}
+    attn_p = {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
+              "wv": stacked((D, Hk * hd)), "wo": stacked((H * hd, D))}
+    if cfg.qkv_bias:
+        # the reference's zero-initialized QKV biases
+        for name, n in (("bq", H * hd), ("bk", Hk * hd), ("bv", Hk * hd)):
+            attn_p[name] = torch.zeros((L, n), dtype=torch.bfloat16,
+                                       device=dev)
+    layer = {"ln1": torch.ones((L, D), device=dev), "attn": attn_p,
+             "ln2": torch.ones((L, D), device=dev)}
+    if kind == "dense":
+        F = cfg.d_ff
+        layer["ffn"] = {"w1": stacked((D, F)), "w3": stacked((D, F)),
+                        "w2": stacked((F, D))}
+    else:
+        E, F = cfg.moe.num_experts, cfg.moe.d_ff
+        layer["moe"] = {"router": stacked((D, E), torch.float32),
+                        "w1": expert_table((D, F)),
+                        "w3": expert_table((D, F)),
+                        "w2": expert_table((F, D))}
+    params["scan"] = {"s0": layer}
     return params
 
 
@@ -180,9 +198,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              pages: Optional[torch.Tensor] = None,
              kv_write_min=None, kv_write_max=None
              ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
-    """Embedding + all layers + final norm: the MoE stack in prefill or
-    segment mode, the Mamba stack in prefill or decode mode
-    (:func:`_mamba_backbone`).
+    """Embedding + all layers + final norm: an attention stack in prefill
+    or segment mode (and the dense stack in decode mode), the Mamba stack
+    in prefill or decode mode (:func:`_mamba_backbone`).
 
     Prefill: tokens [B, S]; returns (hidden [B, S, D], decode state with
     the prompt's KV and pos = S, trace). Each layer projects and ropes
@@ -196,23 +214,33 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     PLACE (paged: only positions in ``[kv_write_min, kv_write_max)``).
     Returns (hidden [B, C, D], state with pos + C, trace).
 
+    Decode (dense stack): tokens [B, 1] at positions ``state["pos"]`` (a
+    0-d tensor or [B]); each layer's new K/V lands IN PLACE in slot
+    ``min(pos, capacity-1)`` of ``state``'s cache and the flash-decode
+    kernel scores it. Returns (hidden [B, 1, D], state with pos + 1, None).
+
     With ``want_trace`` the trace holds every layer's routing
     ``top_i``/``top_w`` [L, B, S, K] and post-ln2 hidden ``h2``
     [L, B, S, D] under ``trace["scan"]["s0"]``, from the same router
     weights and h2 that the layer's MoE consults."""
-    if stack_kind(cfg) == "mamba":
+    kind = stack_kind(cfg)
+    if kind == "mamba":
         return _mamba_backbone(params, tokens, cfg, mode, state)
-    if mode not in ("prefill", "segment"):
-        raise NotImplementedError(f"backbone mode {mode!r} is not ported "
-                                  f"(decode runs in the engine)")
-    slot = homogeneous_slot(cfg)
+    if mode not in ("prefill", "segment", "decode"):
+        raise NotImplementedError(f"backbone mode {mode!r} is not ported")
+    if mode == "decode" and kind == "moe":
+        raise NotImplementedError("the attention+MoE stack decodes in the "
+                                  "collaborative engine")
+    slot = build_slots(cfg)[0][0]
     x = _embed_inputs(params, tokens, cfg)
     B, S = tokens.shape
-    pos = int(state["pos"]) if mode == "segment" else 0
-    positions = pos + torch.arange(S, device=x.device)[None]
-    K = cfg.moe.top_k
+    if mode == "decode":
+        pos = torch.as_tensor(state["pos"], device=x.device)
+    else:
+        pos = int(state["pos"]) if mode == "segment" else 0
+        positions = pos + torch.arange(S, device=x.device)[None]
     lp_all = params["scan"]["s0"]
-    kv = state["scan"]["s0"] if mode == "segment" else None
+    kv = state["scan"]["s0"] if mode != "prefill" else None
     ks, vs, tis, tws, h2s = [], [], [], [], []
     for layer in range(cfg.num_layers):
         lp = layer_params(lp_all, layer)
@@ -222,6 +250,10 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                              slot.window)
             ks.append(k)
             vs.append(v)
+        elif mode == "decode":
+            st = {"k": kv["k"][layer], "v": kv["v"][layer]}
+            o, _ = attn.decode_attention(lp["attn"], h, st, pos, cfg,
+                                         slot.window)
         else:
             st = {"k": kv["k"][layer], "v": kv["v"][layer]}
             if pages is not None:
@@ -233,9 +265,13 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                               positions, cfg, slot.window)
         x = x + o
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        f = moe_apply(lp["moe"], h2, cfg.moe,
-                      capacity_factor=cfg.moe.serve_capacity_factor)
-        if want_trace:
+        if kind == "dense":
+            f = ffn_apply(lp["ffn"], h2)
+        else:
+            f = moe_apply(lp["moe"], h2, cfg.moe,
+                          capacity_factor=cfg.moe.serve_capacity_factor)
+        if want_trace and kind == "moe":
+            K = cfg.moe.top_k
             _, top_i, top_w = route(lp["moe"]["router"],
                                     h2.reshape(B * S, -1), K)
             tis.append(top_i.reshape(B, S, K))
@@ -247,11 +283,13 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         new_state = {"scan": {"s0": {"k": torch.stack(ks),
                                      "v": torch.stack(vs)}},
                      "pos": torch.tensor(S, dtype=torch.int32)}
+    elif mode == "decode":
+        new_state = {"scan": state["scan"], "pos": state["pos"] + 1}
     else:
         new_state = {"scan": state["scan"],
                      "pos": torch.tensor(pos + S, dtype=torch.int32)}
     trace = None
-    if want_trace:
+    if want_trace and kind == "moe":
         trace = {"scan": {"s0": {"top_i": torch.stack(tis),
                                  "top_w": torch.stack(tws),
                                  "h2": torch.stack(h2s)}}}

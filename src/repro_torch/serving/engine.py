@@ -45,6 +45,18 @@ opens with another request's full pages shares them (its forward and warm
 skip the shared span under segment prefill), and a partial last page that
 two tables share is copied on write before an append.
 
+With a recorder (``recorder=``, a :class:`repro_torch.obs.TraceRecorder`)
+the engine emits the reference's spans, counters and instants, all from
+its two drain helpers (:meth:`_obs_decode`, :meth:`_obs_prefill`): a
+``decode_step`` span with the step's lane split, its ``plan`` /
+``dispatch`` / ``commit`` / ``execute+drain`` phases, the ``lane:*``
+counters, prefetch and host-lane events, the page pool's gauge and
+deltas, and one ``segment_stream`` or ``warm_replay`` span per prefill
+advance. The reference's ``dispatch`` phase is the asynchronous launch of
+its jitted step; the port's layer loop syncs inside every layer (the
+probe reads each layer's routing on the host), so here ``dispatch``
+covers almost the whole step and ``execute+drain`` the rest.
+
 Differences from the reference, all in how, never in what: the cache
 state, its bookkeeping and the page tables live on the host; KV caches,
 pools and slot buffers are updated in place; the layer loop is a Python
@@ -259,7 +271,13 @@ class CollaborativeEngine:
         self.slot = transformer.homogeneous_slot(cfg)
         self.cfg, self.ecfg, self.params = cfg, ecfg, params
         self.device = params["embed"].device
+        # trace recorder (repro_torch.obs): the no-op twin when tracing is
+        # off, so the instrumented path is identical either way; all
+        # emission happens in the _obs_* drain helpers
         self.obs = recorder if recorder is not None else NULL_RECORDER
+        # last-seen cumulative pool counters, so the drain helpers can
+        # emit per-step deltas as instants
+        self._obs_prev: Dict[str, int] = {}
         moe_p = params["scan"]["s0"]["moe"]
         self.tiers = collab.init_tiers(
             moe_p["w1"], moe_p["w3"], moe_p["w2"], ecfg.cache,
@@ -774,14 +792,9 @@ class CollaborativeEngine:
         if ticket.seg > 0:
             n = self._advance_segments(ticket, batch_state, max_chunks)
             self._counters["prefill_segments"] += n
-            name = "prefill_segment"
         else:
             n = self._advance_warm(ticket, max_chunks)
-            name = "warm_replay"
-        if n:
-            self.obs.complete("engine", name, t0, now_ns(),
-                              {"units": n, "cursor": ticket.cursor,
-                               "of": ticket.n_chunks})
+        self._obs_prefill(t0, n, ticket)
         return batch_state, ticket.done
 
     def _advance_warm(self, ticket: PrefillTicket, max_chunks: int) -> int:
@@ -910,15 +923,26 @@ class CollaborativeEngine:
                     state = self._copy_page(state, plan.cow_src, plan.page)
                 self._slot_pages[int(t), len(table.pages) - 1] = plan.page
             pages = torch.from_numpy(self._slot_pages).to(self.device)
+        t_plan = now_ns()
+        # the host lane runs inside the step here (in the reference,
+        # after its asynchronous dispatch returned): read its busy time
+        # before the step
+        busy0 = (self.host_executor.busy_ns
+                 if self.host_executor is not None else 0)
         logits, stats = self._decode_step(tok.to(self.device), state,
                                           active_np, pages)
+        t_disp = now_ns()
         if self.ecfg.kv_paged:
             for t in act:
                 self.kv_pool.commit_append(self._slot_tables[int(t)])
+        t_commit = now_ns()
+        c = self._counters
+        snap = (c["hits"], c["fetched_experts"], c["cpu_expert_calls"],
+                c["prefetch_issued"], c["prefetch_hits"])
         n_active = int(active_np.sum())
         self._accumulate(stats, n_active)
-        self.obs.complete("engine", "decode_step", t0, now_ns(),
-                          {"tokens": n_active})
+        self._obs_decode(t0, t_plan, t_disp, t_commit, snap, busy0,
+                         n_active)
         return logits, state
 
     def _accumulate(self, stats: List[Dict[str, int]], n_active: int) -> None:
@@ -943,3 +967,74 @@ class CollaborativeEngine:
         c["prefill_accesses"] += sum(s["accesses"] for s in stats)
         c["prefill_fetched"] += sum(s["fetched_experts"] for s in stats)
         c["prefill_tokens"] += n_tokens
+
+    # -- trace drain helpers (the ONLY emission sites) ---------------------
+    def _obs_decode(self, t0: int, t_plan: int, t_disp: int, t_commit: int,
+                    snap, busy0: int, n_active: int) -> None:
+        """Drain point: emit the decode step's phase spans and lane
+        attribution AFTER ``_accumulate`` drained the step's stats. The
+        layer loop syncs inside every layer (the probe reads the routing
+        on the host), so ``dispatch`` covers almost the whole step and
+        ``execute+drain`` only what is left after it."""
+        t1 = now_ns()
+        obs = self.obs
+        c = self._counters
+        hit = c["hits"] - snap[0]
+        fetch = c["fetched_experts"] - snap[1]
+        cpu = c["cpu_expert_calls"] - snap[2]
+        obs.complete("engine", "decode_step", t0, t1,
+                     {"tokens": n_active, "hit_experts": hit,
+                      "fetched_experts": fetch, "cpu_expert_calls": cpu})
+        if self.ecfg.kv_paged:
+            obs.complete("engine", "plan", t0, t_plan)
+        obs.complete("engine", "dispatch", t_plan, t_disp)
+        if self.ecfg.kv_paged:
+            obs.complete("engine", "commit", t_disp, t_commit)
+        obs.complete("engine", "execute+drain", t_commit, t1)
+        # per-step lane attribution: the gpu-hit vs fetch vs cpu-miss
+        # split of this step's assignments
+        obs.counter("lane:gpu", "hit_experts", hit, ts_ns=t1)
+        obs.counter("lane:fetch", "fetched_experts", fetch, ts_ns=t1)
+        obs.counter("lane:cpu", "cpu_expert_calls", cpu, ts_ns=t1)
+        if c["prefetch_issued"] - snap[3]:
+            obs.instant("lane:fetch", "prefetch_reserve",
+                        {"issued": c["prefetch_issued"] - snap[3]},
+                        ts_ns=t1)
+        if c["prefetch_hits"] - snap[4]:
+            obs.instant("lane:gpu", "prefetch_land",
+                        {"hits": c["prefetch_hits"] - snap[4]}, ts_ns=t1)
+        if self.host_executor is not None:
+            dbusy = self.host_executor.busy_ns - busy0
+            if dbusy > 0:
+                # the host pool's aggregate busy time this step, placed to
+                # end at the drain (the workers' own placement is not
+                # timed)
+                obs.complete("lane:cpu", "host_execute", t1 - dbusy, t1,
+                             {"queue_peak": self.host_executor.queue_peak})
+        if self.kv_pool is not None:
+            pool = self.kv_pool
+            obs.counter("engine", "kv_pages_in_use", pool.pages_in_use,
+                        ts_ns=t1)
+            for name, cur in (("prefix_hits", pool.prefix_hits),
+                              ("cow_forks", pool.cow_forks),
+                              ("retention_evictions",
+                               pool.retention_evictions)):
+                prev = self._obs_prev.get(name, 0)
+                if cur > prev:
+                    obs.instant("engine", name, {"count": cur - prev},
+                                ts_ns=t1)
+                    self._obs_prev[name] = cur
+
+    def _obs_prefill(self, t0: int, n_units: int,
+                     ticket: PrefillTicket) -> None:
+        """Drain point: one span per :meth:`advance_prefill_state` call
+        (its per-unit stats already reached the host), covering the
+        segments or warm chunks it advanced."""
+        if n_units == 0:
+            return
+        self.obs.complete(
+            "engine",
+            "segment_stream" if ticket.seg > 0 else "warm_replay",
+            t0, now_ns(),
+            {"units": n_units, "cursor": ticket.cursor,
+             "of": ticket.n_chunks})

@@ -31,6 +31,12 @@ T = ``EngineConfig.max_batch`` concurrent slots share ONE expert cache:
   * fork         — :meth:`fork` clones a live request into a free slot
                    sharing all its KV pages (paged KV).
 
+Tracing: with a recorder every tick emits ``tick`` (and ``admission`` /
+``decode+drain``) on the ``sched`` track, and every retired or cancelled
+request its ``queued`` / ``prefill`` / ``decode`` spans and ``done`` or
+``cancelled`` instant on ``req:N`` and its ``occupied`` span on
+``slot:N``, all from the ``_obs_*`` drain helpers, as the reference does.
+
 Seeds: the scheduler's own CPU ``torch.Generator`` (seeded by ``seed``)
 draws the base seed of every request whose SamplingParams carries none; a
 request's i-th token draws with ``step_seed(base, i)``. With
@@ -77,6 +83,9 @@ class Request:
     on_token: Optional[Callable[[int, bool], None]] = None
     generated: List[int] = field(default_factory=list)
     cancelled: bool = False
+    # lifecycle stamps (perf_counter_ns; 0 = phase not reached) written as
+    # the request moves submit -> admit -> first token -> done: plain
+    # clock reads, emitted as spans at the _obs_retire drain point
     t_submit: int = 0
     t_admit: int = 0
     t_first: int = 0
@@ -114,6 +123,10 @@ class ContinuousBatchingScheduler:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.engine = engine
+        # trace recorder (repro_torch.obs.TraceRecorder, or the no-op twin
+        # when tracing is off); a recorder passed here also becomes the
+        # engine's, so one argument wires the whole stack. Emission happens
+        # only in the _obs_* drain helpers
         self.obs = recorder if recorder is not None else engine.obs
         if recorder is not None:
             engine.obs = recorder
@@ -231,6 +244,7 @@ class ContinuousBatchingScheduler:
         self._pending_events.append((req.rid, -1, True))
         if req.on_token is not None:
             req.on_token(-1, True)
+        self._obs_retire([req])
         return True
 
     def fork(self, rid: int, max_new_tokens: Optional[int] = None,
@@ -314,6 +328,8 @@ class ContinuousBatchingScheduler:
                 self.engine.release_slot(t)
                 out.append(req)
         self.finished.extend(out)
+        if out:
+            self._obs_retire(out)
         return out
 
     def _append(self, req: Request, tok: int,
@@ -447,12 +463,56 @@ class ContinuousBatchingScheduler:
                     continue
                 self._append(req, int(toks[t]), events)
                 self._next[t, 0] = toks[t]
-        self.obs.complete("sched", "tick", t0, now_ns(),
-                          {"admitted": admitted, "warming": warming,
-                           "decoded": decoded, "queued": len(self.queue)})
+        self._obs_tick(t0, t_adm0, t_adm1, admitted, warming, decoded)
         if self._debug_invariants and self.engine.kv_pool is not None:
             self.engine.kv_pool.check_invariants()
         return finished, events
+
+    # -- trace drain helpers (the ONLY emission sites) ---------------------
+    def _obs_tick(self, t0: int, t_adm0: int, t_adm1: int, admitted: int,
+                  warming: int, decoded: int) -> None:
+        """Drain point: the tick's phase spans, emitted after the tick's
+        token drain from the clock readings the tick collected."""
+        t1 = now_ns()
+        self.obs.complete("sched", "tick", t0, t1,
+                          {"admitted": admitted, "warming": warming,
+                           "decoded": decoded,
+                           "queued": len(self.queue)})
+        if admitted or warming:
+            self.obs.complete("sched", "admission", t_adm0, t_adm1)
+        if decoded:
+            self.obs.complete("sched", "decode+drain", t_adm1, t1)
+
+    def _obs_retire(self, reqs: Sequence[Request]) -> None:
+        """Drain point: each retired (or cancelled) request's lifecycle
+        spans, emitted retroactively from its timing stamps — the queued /
+        prefill / decode phases, the terminal instant, and the
+        slot-occupancy span on the slot's own track."""
+        for req in reqs:
+            track = f"req:{req.rid}"
+            end = req.t_done if req.t_done else now_ns()
+            if req.t_admit:
+                self.obs.complete(track, "queued", req.t_submit,
+                                  req.t_admit)
+                first = req.t_first if req.t_first else end
+                self.obs.complete(
+                    track, "prefill", req.t_admit, first,
+                    {"prompt_tokens": int(req.prompt.shape[0])})
+                if req.t_first:
+                    self.obs.complete(
+                        track, "decode", req.t_first, end,
+                        {"tokens": len(req.generated),
+                         "ttft_ms": (req.t_first - req.t_submit) / 1e6})
+            else:
+                # cancelled while still queued: its whole life was the
+                # queue, with no prefill or decode phase to cover
+                self.obs.complete(track, "queued", req.t_submit, end)
+            self.obs.instant(
+                track, "cancelled" if req.cancelled else "done",
+                {"generated": len(req.generated)}, ts_ns=end)
+            if req.slot >= 0 and req.t_admit:
+                self.obs.complete(f"slot:{req.slot}", "occupied",
+                                  req.t_admit, end, {"rid": req.rid})
 
     def step(self) -> List[Request]:
         """One tick; returns the requests that finished on it."""

@@ -73,7 +73,7 @@ def test_layout_and_dtypes(reference_tree):
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, ml_dtypes.bfloat16])
 def test_tensor_round_trip(dtype):
     a = (np.random.default_rng(0).standard_normal((3, 5)) * 7).astype(dtype)
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, "cpu")
     b = tensor_to_numpy(t, bf16_dtype=ml_dtypes.bfloat16)
     assert b.dtype == a.dtype and b.tobytes() == a.tobytes()
     # the port's tensor owns its memory: writing the source changes nothing

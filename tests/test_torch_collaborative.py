@@ -65,7 +65,8 @@ def test_probe_execute_commit_match_reference(policy, dtype):
     tcfg = CacheConfig(num_indexes=2, num_ways=2, policy=policy)
     jt = jcollab.init_tiers(jnp.asarray(w1), jnp.asarray(w3), jnp.asarray(w2),
                             jcfg, num_experts=E)
-    tt = tcollab.init_tiers(*(tensor_from_numpy(w) for w in (w1, w3, w2)),
+    tt = tcollab.init_tiers(*(tensor_from_numpy(w, "cpu")
+                              for w in (w1, w3, w2)),
                             tcfg, num_experts=E, device="cpu")
     for layer, top_i, top_w, active in _steps(rng, 40):
         x = np.asarray(jnp.asarray(rng.standard_normal((T, D)), jdt))
@@ -77,7 +78,7 @@ def test_probe_execute_commit_match_reference(policy, dtype):
 
         tpr = tcollab.probe(tt, layer, torch.from_numpy(top_i), tcfg,
                             active=torch.from_numpy(active))
-        ty, staged = tcollab.execute(tt, layer, tensor_from_numpy(x),
+        ty, staged = tcollab.execute(tt, layer, tensor_from_numpy(x, "cpu"),
                                      torch.from_numpy(top_w), tpr, tcfg)
         tt, tfetch = tcollab.commit(tt, layer, tpr, staged, tcfg)
 
@@ -120,7 +121,8 @@ def test_random_policy_preloads_pinned_experts():
     rng = np.random.default_rng(2)
     w1, w3, w2 = _weights(rng, jnp.float32)
     tcfg = CacheConfig(num_indexes=2, num_ways=2, policy="random")
-    tt = tcollab.init_tiers(*(tensor_from_numpy(w) for w in (w1, w3, w2)),
+    tt = tcollab.init_tiers(*(tensor_from_numpy(w, "cpu")
+                              for w in (w1, w3, w2)),
                             tcfg, num_experts=E,
                             generator=torch.Generator().manual_seed(0))
     for i in range(2):

@@ -453,3 +453,32 @@ def test_host_lane_round_trip_on_card(hopper):
             assert torch.equal(a, b)
     assert ex.groups > 0
     ex.close()
+
+
+# -- the other served models' shapes ------------------------------------------
+
+def _model_cases():
+    """(kernel, label) of every ``model:<arch>`` case in
+    ``repro_torch.kernels.cases``: phi35-moe's and qwen3-moe's grouped
+    expert matmuls and decode attention, the generic dense decode of
+    mistral-nemo, smollm (GQA group 3) and qwen2-72b."""
+    from repro_torch.kernels import ALL
+    return [(k["name"], label) for k in ALL for label, _ in k["cases"]
+            if label.startswith("model:")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, label", _model_cases())
+def test_kernels_match_plain_at_model_shapes(hopper, name, label):
+    """Each kernel at a served model's shape: one launch, within one bf16
+    rounding of its plain version, and bitwise equal to a second launch."""
+    entry = _entry(name)
+    spec = dict(entry["cases"])[label]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    args = entry["inputs"](spec, gen)
+    reset_launches()
+    got = entry["wrapper"](*args)
+    torch.cuda.synchronize()
+    assert launches()[name] == 1
+    assert torch.equal(got, entry["wrapper"](*args))
+    _close(got, entry["plain"](*args))

@@ -127,7 +127,7 @@ def _tiers(seed):
     kw = dict(num_indexes=2, num_ways=2, policy="lru")
     jt = jcollab.init_tiers(*(jnp.asarray(w) for w in ws),
                             JaxCacheConfig(**kw), num_experts=E)
-    tt = tcollab.init_tiers(*(tensor_from_numpy(w) for w in ws),
+    tt = tcollab.init_tiers(*(tensor_from_numpy(w, "cpu") for w in ws),
                             CacheConfig(**kw), num_experts=E, device="cpu")
     return jt, tt, JaxCacheConfig(**kw), CacheConfig(**kw)
 

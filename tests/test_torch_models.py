@@ -39,6 +39,19 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 ROUTE_TIE = 0.01
 
 
+# configs added with the dense generic path and the MoE engine's second and
+# third models
+NEW_CONFIGS = ("mistral-nemo-12b", "qwen2-72b", "phi35-moe",
+               "qwen3-moe-30b-a3b")
+
+
+def _top8(reduce, cfg):
+    """``reduced`` with 16 experts and top-8 (the reduced geometry caps
+    them at 8 and 2)."""
+    return reduce(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=16, top_k=8, d_ff=128))
+
+
 @pytest.fixture(scope="module")
 def model():
     jcfg = jax_reduced(jax_get_config("mixtral-8x7b"))
@@ -56,7 +69,7 @@ def _f32(a):
 def _bf16_pair(rng, shape, scale=1.0):
     x = (rng.standard_normal(shape) * scale).astype(np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)
-    return jx, tensor_from_numpy(np.asarray(jx))
+    return jx, tensor_from_numpy(np.asarray(jx), "cpu")
 
 
 def test_config_matches_reference(model):
@@ -84,6 +97,25 @@ def test_config_matches_reference(model):
         assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
         assert tc.ssm.d_inner(tc.d_model) == jc.ssm.d_inner(jc.d_model)
         assert tc.ssm.num_heads(tc.d_model) == jc.ssm.num_heads(jc.d_model)
+    # the attention configs, full and reduced (and with the top-8
+    # override the MoE engine tests use): every field the port's config
+    # has, the MoE block field by field
+    for arch in NEW_CONFIGS + ("mixtral-8x7b", "smollm-360m"):
+        pairs = [(get_config(arch), jax_get_config(arch)),
+                 (reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))]
+        if get_config(arch).moe is not None:
+            pairs.append((_top8(reduced, get_config(arch)),
+                          _top8(jax_reduced, jax_get_config(arch))))
+        for tc, jc in pairs:
+            for f in dataclasses.fields(tc):
+                if f.name != "moe":
+                    assert getattr(tc, f.name) == getattr(jc, f.name), \
+                        (arch, f.name)
+            if tc.moe is None:
+                assert jc.moe is None, arch
+            else:
+                assert dataclasses.asdict(tc.moe) == \
+                    dataclasses.asdict(jc.moe), arch
 
 
 def test_rmsnorm_matches_reference():

@@ -61,7 +61,7 @@ def _inputs(shape, dtype, seed):
             rng.standard_normal((G, D, F)) * 0.1,
             rng.standard_normal((G, F, D)) * 0.1]
     j = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
-    t = [tensor_from_numpy(np.asarray(a)) for a in j]
+    t = [tensor_from_numpy(np.asarray(a), "cpu") for a in j]
     return j, t
 
 

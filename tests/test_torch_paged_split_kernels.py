@@ -44,7 +44,7 @@ def _pair(rng, shape, scale=1.0):
     """The same bf16 values on both sides: (jax array, torch tensor)."""
     x = (rng.standard_normal(shape) * scale).astype(np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)
-    return jx, tensor_from_numpy(np.asarray(jx))
+    return jx, tensor_from_numpy(np.asarray(jx), "cpu")
 
 
 def _f32(a):

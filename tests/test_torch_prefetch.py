@@ -267,7 +267,7 @@ def _tiers(seed, ccfg_kw=None):
     jcfg, tcfg = JaxCacheConfig(**kw), CacheConfig(**kw)
     jt = jcollab.init_tiers(*(jnp.asarray(w) for w in ws), jcfg,
                             num_experts=E)
-    tt = tcollab.init_tiers(*(tensor_from_numpy(w) for w in ws), tcfg,
+    tt = tcollab.init_tiers(*(tensor_from_numpy(w, "cpu") for w in ws), tcfg,
                             num_experts=E, device="cpu")
     return jt, tt, jcfg, tcfg
 

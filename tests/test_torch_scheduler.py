@@ -279,16 +279,12 @@ def test_unported_engine_options_raise(name):
                                   "--prefetch-min-prob=0.5",
                                   "--host-threads=4", "--trace-out=t.json"])
 def test_unported_serve_flags_raise(flag, capsys):
-    """Only --trace-out (tracing) is left unported; the prefetch and host
-    lane flags parse, and --host-backend jax is an error with its
+    """No serve flag is left unported: the prefetch, host lane and
+    tracing flags parse, and --host-backend jax is an error with its
     reason."""
-    if flag.startswith("--trace-out"):
-        with pytest.raises(SystemExit):
-            serve_cli.parse_args([flag])
-        assert "not ported" in capsys.readouterr().err
-        return
     args = serve_cli.parse_args([flag])
-    assert args.trace_out is None
+    assert args.trace_out == ("t.json" if flag.startswith("--trace-out")
+                              else None)
     with pytest.raises(SystemExit):
         serve_cli.parse_args([flag, "--host-backend", "jax"])
     assert "no PyTorch meaning" in capsys.readouterr().err

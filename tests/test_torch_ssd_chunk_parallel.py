@@ -57,7 +57,7 @@ def _inputs(seed, B, S, nh, hp, ds, h0):
 
 def _bf16(a):
     j = jnp.asarray(a, jnp.bfloat16)
-    return j, tensor_from_numpy(np.asarray(j))
+    return j, tensor_from_numpy(np.asarray(j), "cpu")
 
 
 def _close(got, want, rel, what):

@@ -56,7 +56,7 @@ def _inputs(seed, B, S, nh, hp, ds, h0, x_dtype=np.float32):
 def _bf16(a):
     """The same bf16 values on both sides."""
     j = jnp.asarray(a, jnp.bfloat16)
-    return j, tensor_from_numpy(np.asarray(j))
+    return j, tensor_from_numpy(np.asarray(j), "cpu")
 
 
 def _close(got, want, rel, what):

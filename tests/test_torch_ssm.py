@@ -68,7 +68,7 @@ def layer():
 def _bf16_pair(rng, shape, scale=1.0):
     x = (rng.standard_normal(shape) * scale).astype(np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)
-    return jx, tensor_from_numpy(np.asarray(jx))
+    return jx, tensor_from_numpy(np.asarray(jx), "cpu")
 
 
 def _f32(a):
