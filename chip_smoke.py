@@ -69,7 +69,28 @@ Phases, in order; any failure exits non-zero:
      plain scan; prefill of S+1 tokens against prefill of S and a decode
      step, for the layer and for the 48-layer model;
  17. where a Mamba prefill's and a decode step's time goes;
- 18. the ``kernels`` line (launch counts from the serve phases alone, by
+ 18. serve gemma3-4b on the generic path at its full published size (34
+     layers: 5 groups of its 6-layer period of five 1024-key windows and a
+     global layer, then 4 remainder layers; 3.88 B parameters, 7.8 GB of
+     bf16 on the card), seeded random weights: 4 prompts of 2048 tokens
+     (twice the window; the flash scan, as the reference's, takes whole
+     1024-key chunks past 1024 keys), 32 greedy tokens through the
+     head-dim-256 flash-decode build; prefill of S+1 against S and a
+     decode step (S streamed as one segment: 2047 keys are no whole
+     chunk);
+ 19. serve jamba-v0.1-52b at its published widths with ``num_layers`` cut
+     32 -> 8 (one period: 7 Mamba layers and 1 attention layer, the MoE on
+     layers 1, 3, 5 and 7; 13.3 B parameters, 26.6 GB on the card): 2
+     prompts of 1024 tokens (prefill through the d_state-16 ``ssd_scan``
+     build), 16 greedy tokens; prefill against decode likewise;
+ 20. serve llama4-maverick-400b-a17b at its published widths with
+     ``num_layers`` cut 48 -> 2 (one period: a dense-FFN layer and a
+     128-expert top-1 MoE layer with its shared expert; 18.6 B
+     parameters, 37.3 GB on the card): 4 prompts of 256 tokens, 16 greedy
+     tokens; its MoE layer against a dense plain reference; prefill
+     against decode likewise. Each of phases 18-20 frees its weights
+     before the next;
+ 21. the ``kernels`` line (launch counts from the serve phases alone, by
      phase and summed; times at the served, long and other models'
      shapes) and the result line.
 Prints nothing of the result when no GPU is present.
@@ -111,6 +132,15 @@ MOE_MODELS = (("phi35-moe", 4), ("qwen3-moe-30b-a3b", 32))
 # size, no cut: (batch, prompt, generated tokens), then profiled steps
 DENSE = dict(arch="mistral-nemo-12b", batch=4, prompt=1024, new_tokens=32,
              profiled=4)
+# phases 18-20: the reference's mixed layer periods on the generic path:
+# (arch, num_layers kept (None: the published depth), batch, prompt,
+# generated tokens, prompt length of the prefill-against-decode check).
+# The check's prompt keeps the MoE dispatch dropless (the reference's
+# serve capacity factor of 8 holds up to 256 picks a row): 128 tokens of
+# jamba's top-2, 256 of llama4's top-1; gemma3's is twice its window
+MIXED = (("gemma3-4b", None, 4, 2048, 32, 2048),
+         ("jamba-v0.1-52b", 8, 2, 1024, 16, 128),
+         ("llama4-maverick-400b-a17b", 2, 4, 256, 16, 256))
 
 
 def card_line() -> str:
@@ -1290,6 +1320,162 @@ def profile_mamba(params, cfg, steps: int = 4):
           f"operations a step")
 
 
+def serve_mixed(arch, layers, B, S, n, check_len):
+    """Phases 18-20: one mixed-period model on the generic path
+    (``repro_torch.models.prefill`` with room for the generated tokens,
+    then greedy ``decode_step``s), seeded random weights on the card:
+    prefill ms, decode ms a step, tok/s, peak device memory; tokens in the
+    vocab, finite logits, each attention layer's flash-decode launched once
+    a decode step and each Mamba layer's ``ssd_scan`` once a prefill; an
+    MoE layer against the dense plain reference; prefill of ``check_len``
+    tokens against prefill of one fewer and a decode step. The weights are
+    freed before returning the launch counts of the timed run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, models
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, num_layers=layers)
+    cut = "no cut" if layers is None else \
+        f"num_layers cut {full.num_layers} -> {layers}"
+    slots, G, R = transformer.build_slots(cfg)
+    kinds = [s for _, _, _, s in transformer.layer_order(cfg)]
+    n_attn = sum(s.kind == "attn" for s in kinds)
+    n_mamba = len(kinds) - n_attn
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    count = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    print(f"[{arch}] published widths, {cut}: d_model={cfg.d_model} heads="
+          f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size}; period of {len(slots)} x "
+          f"{G} groups + {R} remainder: {n_attn} attention, {n_mamba} Mamba "
+          f"layers, windows {[s.window for s in slots]}, MoE slots "
+          f"{[j for j, s in enumerate(slots) if s.is_moe]}; "
+          f"{count / 1e9:.3f} B parameters, {gb:.2f} GB on the card, drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
+    if any(t.device.type != "cuda" for t in leaves):
+        raise SystemExit(f"{arch}: a weight is not on the card")
+    warm = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+    _, st = models.prefill(params, {"tokens": warm}, cfg, capacity=65)
+    models.decode_step(params, st, {"tokens": warm[:, :1]}, cfg)
+    del st
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(10)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = models.prefill(params, {"tokens": prompt}, cfg,
+                                   capacity=S + n)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = torch.isfinite(logits).all()
+    outs = [tok]
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        logits, state = models.decode_step(params, state, {"tokens": tok},
+                                           cfg)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, 0].argmax(-1)[:, None]
+        outs.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    launches = kernels.launches()
+    out = torch.cat(outs, dim=1).cpu()
+    print(f"[{arch}] batch {B} x prompt {S}: prefill {prefill_ms:.3f} ms "
+          f"({B * S / prefill_ms * 1e3:.1f} prompt tok/s), decode "
+          f"{step_ms:.3f} ms/step ({B / step_ms * 1e3:.3f} tok/s), {n} "
+          f"tokens a row; peak HBM "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{launches}; first row {out[0, :8].tolist()}")
+    if tuple(out.shape) != (B, n) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size or not bool(finite):
+        raise SystemExit(f"{arch}: tokens outside the vocab or non-finite "
+                         f"logits")
+    if int(state["pos"]) != S + n - 1:
+        raise SystemExit(f"{arch}: the state's position is wrong")
+    if launches["flash_decode"] != n_attn * (n - 1) \
+            or launches["ssd_scan"] != n_mamba:
+        raise SystemExit(f"{arch}: flash_decode launched "
+                         f"{launches['flash_decode']} times (want "
+                         f"{n_attn * (n - 1)}), ssd_scan "
+                         f"{launches['ssd_scan']} (want {n_mamba})")
+    del state, logits
+    if any(s.is_moe for s in slots):
+        check_moe_layer(params, cfg, B)
+    toks = torch.cat([prompt[:1], out[:1, :1].to("cuda")], 1)[:, :check_len]
+    full_logits, _ = models.prefill(params, {"tokens": toks}, cfg)
+    if check_len - 1 > 1024 and (check_len - 1) % 1024:
+        # past 1024 keys the flash scan takes whole 1024-key chunks (the
+        # reference asserts as much): the prefix streams as one segment
+        # over a cache of check_len keys instead (attention stacks only)
+        st = models.init_state(cfg, 1, check_len, "cuda")
+        _, st, _ = transformer.backbone(params, toks[:, :-1], cfg, "segment",
+                                        state=st)
+    else:
+        _, st = models.prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                               capacity=check_len)
+    step, _ = models.decode_step(params, st, {"tokens": toks[:, -1:]}, cfg)
+    # every layer adds to the residual stream an output within about two
+    # bf16 roundings: 2^-4 of the largest logit, as phases 14 and 16
+    _close(f"{arch}: prefill {check_len - 1} then decode vs prefill "
+           f"{check_len} (logits, {cfg.num_layers} layers)", step[:, 0],
+           full_logits[:, 0], 2 ** -4)
+    del params, leaves, st, full_logits, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{arch}] weights freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB still allocated")
+    return launches
+
+
+def check_moe_layer(params, cfg, T: int):
+    """Phase 20: the generic path's MoE layer (``models.moe.moe_apply``,
+    decode-shaped: one flat dispatch group of T tokens, the expert tables
+    on the card) against a dense plain reference: every pick through the
+    plain SwiGLU with its expert's weights, weighted, plus the shared
+    experts, summed in fp32. Within 2^-6 of the largest output, as phase
+    13's check."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_plain, swiglu_gmm_plain
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import moe_apply, route
+    slots = transformer.build_slots(cfg)[0]
+    j = next(j for j, s in enumerate(slots) if s.is_moe)
+    p = transformer.layer_params(params["scan"][f"s{j}"]["moe"], 0)
+    m = cfg.moe
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((T, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    y = moe_apply(p, x, m, capacity_factor=m.serve_capacity_factor)[:, 0]
+    _, top_i, top_w = route(p["router"], x[:, 0], m.top_k)
+    want = torch.zeros((T, cfg.d_model), device="cuda")
+    for t in range(T):
+        for k in range(m.top_k):
+            e = int(top_i[t, k])
+            h = swiglu_gmm_plain(x[t][None], p["w1"][e][None],
+                                 p["w3"][e][None])
+            want[t] += top_w[t, k] * \
+                gmm_plain(h, p["w2"][e][None])[0, 0].float()
+    if "shared" in p:
+        sh = p["shared"]
+        h = swiglu_gmm_plain(x[:, 0][None], sh["w1"][None], sh["w3"][None])
+        want += gmm_plain(h, sh["w2"][None])[0].float()
+    _close(f"{cfg.name}: MoE layer s{j} ({m.num_experts} experts top"
+           f"{m.top_k}, {m.num_shared_experts} shared) vs the dense plain "
+           f"reference", y, want, 2 ** -6)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1339,6 +1525,11 @@ def main() -> int:
     params, cfg, ssm_launches = serve_mamba()
     check_mamba(params, cfg)
     profile_mamba(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed_launches = {arch: serve_mixed(arch, layers, B, S, n, check)
+                      for arch, layers, B, S, n, check in MIXED}
     rows = []
     for k in kernels.ALL:
         name = k["name"]
@@ -1350,7 +1541,9 @@ def main() -> int:
                     **{arch: moe_launches[arch][name]
                        for arch, _ in MOE_MODELS},
                     DENSE["arch"]: dense_launches_generic[name],
-                    "ssm": ssm_launches[name]}
+                    "ssm": ssm_launches[name],
+                    **{arch: mixed_launches[arch][name]
+                       for arch, *_ in MIXED}}
         rows.append(dict(
             name=name, route="cuda",
             source=str(Path(k["source"]).relative_to(ROOT)),

@@ -4,9 +4,14 @@ port's parameters and back, dtype preserved bit for bit.
 The reference's bf16 leaves reach numpy as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses: they cross as a ``uint16`` view and are
 reinterpreted with ``.view(torch.bfloat16)`` (and the reverse on the way
-back). The scan-stacked layout (``params["scan"]["s0"]``, leading ``[L]``
-axis) is kept as is. Expert tables (``moe.w1/w3/w2``) land in host memory,
-pinned when ``device`` is a GPU: they are the engine's host tier.
+back). The tree maps leaf to leaf, so its period-stacked layout is kept as
+is: slot j under ``params["scan"]["s{j}"]`` with a leading ``[G]`` axis,
+the remainder under ``params["rem"]["r{j}"]``. The expert tables
+(``moe.w1/w3/w2``) of the engine's homogeneous attention+MoE stack (one
+slot ``s0`` with attention and MoE, no remainder) land in host memory,
+pinned when ``device`` is a GPU: they are the engine's host tier. Every
+other stack's tables go to ``device`` with the other leaves, as
+:func:`repro_torch.models.init_params` places them.
 """
 from __future__ import annotations
 
@@ -47,11 +52,14 @@ def tensor_to_numpy(t: torch.Tensor, bf16_dtype=None) -> np.ndarray:
 def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Reference param tree (nested dicts of numpy arrays) -> port params."""
     dev = torch.device(device)
+    scan = tree.get("scan", {})
+    engine_stack = "rem" not in tree and list(scan) == ["s0"] \
+        and {"attn", "moe"} <= set(scan["s0"])
 
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        host = len(path) >= 2 and path[-2] == "moe" \
+        host = engine_stack and len(path) >= 2 and path[-2] == "moe" \
             and path[-1] in EXPERT_TABLES
         if host:
             return tensor_from_numpy(np.asarray(node), "cpu",

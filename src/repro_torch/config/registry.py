@@ -11,7 +11,9 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # Modules under repro_torch.configs that register an architecture.
 _CONFIG_MODULES = ["mixtral_8x7b", "phi35_moe", "qwen3_moe_30b_a3b",
                    "mamba2_370m", "smollm_360m", "mistral_nemo_12b",
-                   "qwen2_72b", "jamba_v0_1_52b"]
+                   "qwen2_72b", "jamba_v0_1_52b",
+                   "llama4_maverick_400b_a17b", "gemma3_4b", "qwen2_vl_7b",
+                   "seamless_m4t_large_v2"]
 
 
 def register(name: str):

@@ -1,7 +1,8 @@
 """jamba-v0.1-52b [hybrid]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336
 vocab=65536. Mamba:attention 7:1 interleave; MoE 16 experts top-2 on every
-other layer. [arXiv:2403.19887] Registered so that ``--arch`` names it; its
-hybrid stack is not served by the port yet (ROADMAP slice 6).
+other layer. [arXiv:2403.19887] Served on the generic path (a period of 8:
+7 Mamba layers and 1 attention layer, each followed by a dense FFN or, on
+odd layers, the MoE).
 """
 from repro_torch.config import ModelConfig, MoEConfig, SSMConfig, register
 

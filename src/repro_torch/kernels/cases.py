@@ -9,7 +9,8 @@ the numbers of the ``kernels`` line), ``long`` a long context (timed:
 32768 tokens, Mixtral's ``max_seq_len``, for attention; 65536 for the SSD
 scan), ``model:<arch>`` the shape another served model gives it (timed:
 phi35-moe's and qwen3-moe's decode steps, mistral-nemo's, smollm's and
-qwen2-72b's generic decode at 4 x 1024 prompt tokens plus 32 decoded),
+qwen2-72b's generic decode at 4 x 1024 prompt tokens plus 32 decoded,
+gemma3-4b's at 4 x 2048 plus 32, jamba's Mamba prefill),
 ``ragged`` shapes that exercise the masked edges (checked only). Inputs
 are drawn on the card from the caller's generator; page tables from
 numpy, seeded. A wrapper returns one tensor or a tuple of them.
@@ -30,6 +31,7 @@ import torch
 MIXTRAL_ATTN = dict(H=32, Hk=8, hd=128)      # Mixtral-8x7B's attention widths
 LONG = 32768                                 # Mixtral-8x7B's max_seq_len
 GENERIC_CAP = 1024 + 32       # the generic dense decode: prompt + generated
+GEMMA_CAP = 2048 + 32         # gemma3-4b's: longer than its 1024-key window
 
 
 def _nbytes(*ts) -> int:
@@ -145,6 +147,15 @@ FLASH_DECODE_CASES = [
                                window=-1, H=15, Hk=5, hd=64)),
     ("model:qwen2-72b", dict(B=4, S=GENERIC_CAP, pos=[GENERIC_CAP - 1] * 4,
                              window=-1, H=64, Hk=8, hd=128)),
+    # gemma3-4b's generic decode (8/4 heads of 256, the dense-only hd 256
+    # build): chip_smoke's last step of 4 x 2048-token prompts with 32
+    # generated (capacity 2080, the query at 2078): a local layer (window
+    # 1024, 5 of every 6) and a global one
+    ("model:gemma3-4b", dict(B=4, S=GEMMA_CAP, pos=[GEMMA_CAP - 2] * 4,
+                             window=1024, H=8, Hk=4, hd=256)),
+    ("model:gemma3-4b:global", dict(B=4, S=GEMMA_CAP,
+                                    pos=[GEMMA_CAP - 2] * 4, window=-1,
+                                    H=8, Hk=4, hd=256)),
 ]
 
 
@@ -346,6 +357,10 @@ SSD_CASES = [
     ("ragged", dict(B=2, S=200, nh=8, hp=32, ds=32, chunk=64, h0=True)),
     ("ragged", dict(B=2, S=256, h0=True, **MAMBA2_SSD)),
     ("ragged", dict(B=1, S=513, h0=False, **MAMBA2_SSD)),
+    # jamba-v0.1-52b's Mamba layers (d_inner 8192: 128 heads of 64, d_state
+    # 16): chip_smoke's prefill of 2 prompts of 1024 tokens
+    ("model:jamba-v0.1-52b", dict(B=2, S=1024, nh=128, hp=64, ds=16,
+                                  chunk=256, h0=False)),
 ]
 
 

@@ -61,6 +61,10 @@
 // faster (PERF.md, section 6); PERF.md also gives the times and what still
 // holds the kernel back.
 //
+// Head dims 32, 64 and 128 are built for both entries; 256 (gemma3) for the
+// dense cache, at up to 4 query heads a kv head: 8 PV dims a lane, four
+// 64-dim boxes a key row, a 128 KiB K/V ring (one block an SM).
+//
 // Each entry launches on the given stream, allocates nothing and returns 0,
 // a CUDA error code, -1 for an unsupported head dimension, -2 for a split
 // that does not cover S, or -3 for a page size below 1.
@@ -274,6 +278,8 @@ decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           vf[1] = __uint_as_float(raw.x & 0xffff0000u);
           vf[2] = __uint_as_float(raw.y << 16);
           vf[3] = __uint_as_float(raw.y & 0xffff0000u);
+        } else if constexpr (kDPL == 8) {
+          split_kv::unpack8(*reinterpret_cast<const uint4*>(vr), vf);
         } else if constexpr (kDPL == 2) {
           const uint32_t raw = *reinterpret_cast<const uint32_t*>(vr);
           vf[0] = __uint_as_float(raw << 16);
@@ -411,12 +417,20 @@ int fill(Args* a, const void* q, const void* k, const void* v, void* out,
   return 0;
 }
 
+// Head dim 256 (gemma3) is built for the dense cache only, at up to 4 query
+// heads a kv head (gemma3's group is 2): its K/V ring alone is 128 KiB, one
+// block an SM.
 template <bool PAGED>
 int launch_hd(const Args& a, int B, int hd, long long keys, cudaStream_t s) {
   switch (hd) {
     case 32: return launch_rows<32, PAGED>(a, B, keys, s);
     case 64: return launch_rows<64, PAGED>(a, B, keys, s);
     case 128: return launch_rows<128, PAGED>(a, B, keys, s);
+    case 256:
+      if constexpr (!PAGED) {
+        if (a.group <= 4) return launch<256, 4, false>(a, B, keys, 1, s);
+      }
+      return -1;
     default: return -1;
   }
 }

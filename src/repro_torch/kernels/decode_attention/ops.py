@@ -34,7 +34,11 @@ import torch
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)            # head dimensions the kernels are built for
+HEAD_DIMS = (32, 64, 128)            # head dimensions all kernels are built for
+# flash_decode (dense cache) also at gemma3's 256, up to 4 query heads a kv
+# head; the paged kernels raise for it
+DENSE_HEAD_DIMS = HEAD_DIMS + (256,)
+MAX_GROUP_256 = 4
 KEY_TILE = 64                        # keys per tile of the split kernel (kKT)
 SMS = 132                            # streaming multiprocessors of an H100 SXM
 BLOCKS_PER_SM = 2                    # split blocks an SM runs (decode_splits)
@@ -78,9 +82,10 @@ def check_tables(B: int, page_indptr: torch.Tensor,
                          f"rows for a batch of {B}")
 
 
-def check_cuda(name: str, floats, ints=()) -> None:
+def check_cuda(name: str, floats, ints=(), head_dims=HEAD_DIMS) -> None:
     """What the CUDA kernels take: bf16 contiguous tensors on 16-byte
-    boundaries, int32 contiguous tables, all on one CUDA device."""
+    boundaries, int32 contiguous tables, all on one CUDA device, a head
+    dimension among ``head_dims``."""
     dev = floats[0].device
     for t in floats:
         if t.dtype != torch.bfloat16:
@@ -98,9 +103,9 @@ def check_cuda(name: str, floats, ints=()) -> None:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: tables must be contiguous int32")
     hd = floats[0].shape[-1]
-    if hd not in HEAD_DIMS:
+    if hd not in head_dims:
         raise ValueError(f"{name}: head_dim {hd} not built (one of "
-                         f"{HEAD_DIMS})")
+                         f"{head_dims})")
 
 
 def raise_on(err: int, name: str) -> None:
@@ -303,7 +308,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
             or H % Hk:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
-    check_cuda("flash_decode", (q, k, v), (pos_b,))
+    check_cuda("flash_decode", (q, k, v), (pos_b,), DENSE_HEAD_DIMS)
+    if hd == 256 and H // Hk > MAX_GROUP_256:
+        raise ValueError(f"flash_decode: head_dim 256 is built for up to "
+                         f"{MAX_GROUP_256} query heads a kv head, got "
+                         f"{H // Hk}")
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
         return out.zero_()

@@ -142,6 +142,7 @@ struct Tiles {
   static constexpr int kB = kT * BP;         // elements of a B tile
   static constexpr int kXS = kT * kXW;       // elements of a swizzled x tile
   static constexpr int kSStage = kB + kHG * kXS;
+  static_assert(BP * 2 % 16 == 0, "B / C rows on 16-byte boundaries");
   static_assert(kB * 2 % 1024 == 0, "B tile keeps the x tiles aligned");
   static_assert(2 * DS * kXW <= kSStage, "a head's state planes fit a stage");
   // per head: dt, acs and the keys' weights w of the chunk
@@ -678,8 +679,12 @@ extern "C" int ssd_scan_bf16(const void* x, const float* dt,
   a.states = workspace;
   a.decay = workspace + (size_t)B * a.nc * nh * ds * hp;
   const cudaStream_t s = (cudaStream_t)stream;
-  // mamba2-370m's widths, and its reduced config's
+  // mamba2-370m's widths, its reduced config's, and jamba's (DS = 16: one
+  // warp of the state kernel's warpgroup holds state rows, the other three
+  // multiply zeros; B and C rows of 24 bf16, 48 bytes, keep every cp.async
+  // and ldmatrix row on a 16-byte boundary)
   if (hp == 64 && ds == 128) return launch<64, 128>(a, B, s);
   if (hp == 32 && ds == 32) return launch<32, 32>(a, B, s);
+  if (hp == 64 && ds == 16) return launch<64, 16>(a, B, s);
   return -1;
 }

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
 MAX_CHUNK = 256                       # the kernel's longest chunk
-WIDTHS = ((64, 128), (32, 32))     # (hp, ds) built: mamba2-370m, reduced
+# (hp, ds) built: mamba2-370m's, its reduced config's, jamba's Mamba layers'
+WIDTHS = ((64, 128), (32, 32), (64, 16))
 
 
 def _lib() -> ctypes.CDLL:

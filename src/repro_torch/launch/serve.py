@@ -2,8 +2,10 @@
 ``launch/serve.py``): the collaborative two-tier MoE engine with continuous
 batching for a homogeneous MoE stack (mixtral-8x7b, phi35-moe,
 qwen3-moe-30b-a3b), the generic prefill + greedy decode loop for any other
-(the dense-FFN attention stacks smollm-360m, mistral-nemo-12b and
-qwen2-72b, and the attention-free Mamba2 stack).
+(the dense-FFN attention stacks smollm-360m, mistral-nemo-12b, qwen2-72b
+and gemma3-4b with its 5:1 sliding windows, the attention-free Mamba2
+stack, the jamba-v0.1-52b hybrid and llama4-maverick-400b-a17b's
+interleaved MoE with a shared expert).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
@@ -15,6 +17,8 @@ qwen2-72b, and the attention-free Mamba2 stack).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --batch 2 --prompt 40 --tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
@@ -32,9 +36,10 @@ Prints tokens/s and, on the engine, the paper's cache, prefetch and
 host-lane counters.
 
 The generic path's decode state holds ``--prompt + --tokens`` KV
-positions (``prefill(..., capacity=)``); the reference's keeps the
-prompt's length, so its decode steps past the prompt overwrite the last
-cache slot.
+positions in every attention layer (``prefill(..., capacity=)``); the
+reference's keeps the prompt's length, so its decode steps past the
+prompt overwrite the last cache slot (a sliding-window layer refuses
+that in the port).
 """
 from __future__ import annotations
 

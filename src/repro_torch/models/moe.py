@@ -1,10 +1,13 @@
 """Top-k MoE FFN with sort-based capacity dispatch, serve mode
 (counterpart of the reference's ``models/moe.py``).
 
-This is the dense-framework path the prefill forward runs over the full
-expert table; the decode path's two-tier execution lives in
-:mod:`repro_torch.core.collaborative`. The expert products here are plain
-large matrix products (the reference leaves them to XLA einsums).
+This is the dense-framework path over the full expert table: the
+engine's prefill forward, and every forward of the generic path's MoE
+layers (jamba, llama4); the engine's decode step runs the two-tier
+execution of :mod:`repro_torch.core.collaborative`. The expert products
+here are plain large matrix products (the reference leaves them to XLA
+einsums). A layer with shared experts (``p["shared"]``, a dense SwiGLU FFN
+of ``num_shared_experts`` x d_ff) adds their output to the routed one.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import MoEConfig
-from .layers import mm, silu
+from .layers import ffn_apply, mm, silu
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,7 +61,8 @@ def _dispatch(xb: torch.Tensor, tib: torch.Tensor, C: int, E: int):
 
 def _experts(p: Params, device) -> Tuple[torch.Tensor, ...]:
     """The layer's expert table on the compute device. A host-tier table
-    (pinned memory) is copied over for this call and dropped after it."""
+    (pinned memory: the engine's stack) is copied over for this call and
+    dropped after it; the generic path's tables already live there."""
     return tuple(p[k].to(device, non_blocking=True) for k in ("w1", "w3", "w2"))
 
 
@@ -99,16 +103,20 @@ def moe_apply(p: Params, x: torch.Tensor, m: MoEConfig,
     xf = x.reshape(B * S, D)
     _, top_i, top_w = route(p["router"], xf, K)
     if S == 1:
-        return _moe_one_group(p, xf, top_i, top_w, m, cf).reshape(B, S, D)
-    C = max(int(S * K / E * cf), 1)
-    C = (C + 7) // 8 * 8
-    ti, tw = top_i.reshape(B, S, K), top_w.reshape(B, S, K)
-    w1, w3, w2 = _experts(p, x.device)
-    ys = []
-    for b in range(B):
-        buf, token, slot, keep, order = _dispatch(x[b], ti[b], C, E)
-        h = silu(mm(buf, w1)) * mm(buf, w3)
-        out = mm(h, w2)                            # [E, C, D]
-        ys.append(_combine(out, token, slot, keep, order, tw[b], S, E, C,
-                           x.dtype))
-    return torch.stack(ys).reshape(B, S, D)
+        y = _moe_one_group(p, xf, top_i, top_w, m, cf)
+    else:
+        C = max(int(S * K / E * cf), 1)
+        C = (C + 7) // 8 * 8
+        ti, tw = top_i.reshape(B, S, K), top_w.reshape(B, S, K)
+        w1, w3, w2 = _experts(p, x.device)
+        ys = []
+        for b in range(B):
+            buf, token, slot, keep, order = _dispatch(x[b], ti[b], C, E)
+            h = silu(mm(buf, w1)) * mm(buf, w3)
+            out = mm(h, w2)                        # [E, C, D]
+            ys.append(_combine(out, token, slot, keep, order, tw[b], S, E,
+                               C, x.dtype))
+        y = torch.cat(ys)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], xf)
+    return y.reshape(B, S, D)

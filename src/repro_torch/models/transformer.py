@@ -1,32 +1,40 @@
-"""Decoder-only LM assembly, homogeneous stacks (counterpart of the
-reference's ``models/transformer.py``).
+"""Decoder-only LM assembly with period-stacked heterogeneous layers
+(counterpart of the reference's ``models/transformer.py``).
 
-Three stacks run here: the attention+MoE stack the collaborative engine
-serves, and, on the generic serve path, the attention + dense SwiGLU FFN
-stack (smollm, mistral-nemo, qwen2 with its QKV biases) and the
-attention-free Mamba2 stack. Any other stack (hybrid, encoder-decoder,
-the vlm/audio front ends) raises ``NotImplementedError`` (ROADMAP slice
-6).
+An architecture repeats a *period* of P layer slots (P = lcm of the
+attention/Mamba interleave, the MoE interleave and the sliding-window
+pattern: 1 for llama-likes and Mamba2, 6 for gemma3, 8 for jamba, 2 for
+llama4): ``G = L // P`` groups of the period, then the ``L % P``
+remainder layers. Each slot is attention or Mamba, then a dense SwiGLU
+FFN, the MoE or nothing (:func:`_slot_has_ffn`), with its own window.
+Encoder-decoder models and the vlm/audio front ends raise
+``NotImplementedError`` (ROADMAP slice 6).
 
-The parameter tree mirrors the reference's scan-stacked layout: every
-per-layer leaf under ``params["scan"]["s0"]`` carries a leading ``[L]``
-axis (``moe.w1`` is ``[L, E, D, F]``, ``mamba.in_proj`` ``[L, D, ...]``),
-so the weight bridge maps leaf to leaf. The expert tables are the
-engine's host tier: they live in host memory (pinned when the model runs
-on a GPU); everything else lives on the compute device.
+The parameter tree mirrors the reference's: slot j of the period under
+``params["scan"]["s{j}"]``, every leaf with a leading ``[G]`` axis
+(``moe.w1`` is ``[G, E, D, F]``, ``mamba.in_proj`` ``[G, D, ...]``), the
+remainder under ``params["rem"]["r{j}"]`` without it, so the weight bridge
+maps leaf to leaf. The decode state mirrors the same layout (attention KV,
+Mamba ``conv``/``ssd`` per slot).
 
-``backbone`` runs the attention stacks in prefill and segment mode (the
-MoE stack with the routing trace the cache-warming replay consumes) and
-the dense stack also in decode mode, scored by the flash-decode kernel
-(the MoE stack's decode step is the engine's,
-:mod:`repro_torch.serving.engine`); the Mamba stack runs in prefill and
-decode mode.
+Where the expert tables live: the homogeneous attention+MoE stack
+(:func:`stack_kind` ``"moe"``: one slot, no remainder) is the
+collaborative engine's, and its tables are the engine's host tier, in host
+memory (pinned when the model runs on a GPU). Every other stack runs on
+the generic path, which has no tier to page experts through, so its
+tables live on the compute device with every other leaf, as the
+reference's generic path holds them.
+
+``backbone`` runs any stack in prefill and decode mode, and the attention
+stacks in segment mode (the engine's MoE stack with the routing trace the
+cache-warming replay consumes); the homogeneous MoE stack's decode step is
+the engine's (:mod:`repro_torch.serving.engine`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -65,10 +73,13 @@ def _slot_has_ffn(cfg: ModelConfig, slot: Slot) -> bool:
 
 
 def stack_kind(cfg: ModelConfig) -> str:
-    """``"moe"`` for a homogeneous attention+MoE stack, ``"dense"`` for a
-    homogeneous attention stack with a dense FFN, ``"mamba"`` for an
-    attention-free Mamba stack without FFN; raises ``NotImplementedError``
-    (naming the ROADMAP slice) for any stack the port cannot run yet."""
+    """``"moe"`` for the homogeneous attention+MoE stack the collaborative
+    engine serves (one slot, no remainder), ``"dense"`` for a stack of
+    attention layers with dense FFNs (any window pattern), ``"mamba"`` for
+    an attention-free Mamba stack without FFN, ``"mixed"`` for any other
+    period (hybrid attention/Mamba, interleaved MoE). Raises
+    ``NotImplementedError`` (naming the ROADMAP slice) for the stacks the
+    port cannot run yet: encoder-decoder and the vlm/audio front ends."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet (ROADMAP slice 6)")
@@ -76,17 +87,14 @@ def stack_kind(cfg: ModelConfig) -> str:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} front end "
                                   f"is not ported yet (ROADMAP slice 6)")
     slots, _, R = build_slots(cfg)
-    if len(slots) == 1 and not R:
-        if slots[0].kind == "attn" and slots[0].is_moe:
-            return "moe"
-        if slots[0].kind == "attn" and cfg.d_ff > 0:
-            return "dense"
-        if slots[0].kind == "mamba" and not _slot_has_ffn(cfg, slots[0]):
-            return "mamba"
-    raise NotImplementedError(
-        f"{cfg.name}: the port runs homogeneous attention stacks (MoE or "
-        f"dense FFN) and attention-free Mamba stacks; this {cfg.family} "
-        f"stack (a hybrid or interleaved period) is ROADMAP slice 6")
+    if len(slots) == 1 and not R and slots[0].kind == "attn" \
+            and slots[0].is_moe:
+        return "moe"
+    if all(s.kind == "attn" and not s.is_moe for s in slots) and cfg.d_ff:
+        return "dense"
+    if all(s.kind == "mamba" and not _slot_has_ffn(cfg, s) for s in slots):
+        return "mamba"
+    return "mixed"
 
 
 def homogeneous_slot(cfg: ModelConfig) -> Slot:
@@ -104,92 +112,239 @@ def layer_params(lp: Params, layer: int) -> Params:
             for k, v in lp.items()}
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Params:
-    """Seeded random parameters with the reference's shapes and scales
-    (``models/layers.py::_dense_init``: normal / sqrt(fan_in), fan_in the
-    leading axis of each unstacked leaf; the expert tables' leading axis is
-    E; the Mamba leaves follow :func:`ssm.mamba_params`). ``generator``
-    must live on ``device``. Expert tables are drawn on the device one
-    expert at a time and copied into host memory, pinned when ``device`` is
-    a GPU."""
-    kind = stack_kind(cfg)
-    dev = torch.device(device)
-    L, D = cfg.num_layers, cfg.d_model
-    g = generator
+def layer_order(cfg: ModelConfig) -> Iterator[Tuple[str, str, Optional[int],
+                                                Slot]]:
+    """Every layer in order: (tree, key, group or None, slot). Group g's
+    slots run before group g + 1's; the remainder runs last."""
+    slots, G, R = build_slots(cfg)
+    for g in range(G):
+        for j, slot in enumerate(slots):
+            yield "scan", f"s{j}", g, slot
+    for j in range(R):
+        yield "rem", f"r{j}", None, slots[j % len(slots)]
+
+
+def _at(tree: Params, g: Optional[int]) -> Params:
+    return tree if g is None else layer_params(tree, g)
+
+
+# -- parameters --------------------------------------------------------------
+
+def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
+                 dev: torch.device, host_experts: bool) -> Params:
+    """n layers of one slot, every leaf stacked on a leading [n] axis, with
+    the reference's shapes and scales (``_layer_params``). A leaf is drawn
+    for all n layers before the next leaf. Expert tables are drawn on
+    ``dev`` one expert at a time; with ``host_experts`` they land in host
+    memory, pinned when ``dev`` is a GPU."""
+    D = cfg.d_model
 
     def stacked(shape, dtype=torch.bfloat16):
         return torch.stack([dense_init(shape, g, dev, dtype=dtype)
-                            for _ in range(L)])
+                            for _ in range(n)])
+
+    def expert_table(shape):
+        out = torch.empty((n, E) + shape, dtype=torch.bfloat16,
+                          device="cpu" if host_experts else dev,
+                          pin_memory=host_experts and dev.type == "cuda")
+        for l in range(n):
+            for e in range(E):
+                w = torch.randn(shape, generator=g, device=dev)
+                out[l, e].copy_((w / math.sqrt(E)).to(torch.bfloat16))
+        return out
+
+    def ffn(F):
+        return {"w1": stacked((D, F)), "w3": stacked((D, F)),
+                "w2": stacked((F, D))}
+
+    layer: Params = {"ln1": torch.ones((n, D), device=dev)}
+    if slot.kind == "attn":
+        H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        a = {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
+             "wv": stacked((D, Hk * hd)), "wo": stacked((H * hd, D))}
+        if cfg.qkv_bias:
+            # the reference's zero-initialized QKV biases
+            for name, w in (("bq", H * hd), ("bk", Hk * hd),
+                            ("bv", Hk * hd)):
+                a[name] = torch.zeros((n, w), dtype=torch.bfloat16,
+                                      device=dev)
+        layer["attn"] = a
+    else:
+        layers = [ssm.mamba_params(cfg, g, dev) for _ in range(n)]
+        layer["mamba"] = {k: torch.stack([lp[k] for lp in layers])
+                          for k in layers[0]}
+    if _slot_has_ffn(cfg, slot):
+        layer["ln2"] = torch.ones((n, D), device=dev)
+        if slot.is_moe:
+            m = cfg.moe
+            E, F = m.num_experts, m.d_ff
+            layer["moe"] = {"router": stacked((D, E), torch.float32),
+                            "w1": expert_table((D, F)),
+                            "w3": expert_table((D, F)),
+                            "w2": expert_table((F, D))}
+            if m.num_shared_experts:
+                layer["moe"]["shared"] = ffn(F * m.num_shared_experts)
+        else:
+            layer["ffn"] = ffn(cfg.d_ff)
+    return layer
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Params:
+    """Seeded random parameters with the reference's tree, shapes and
+    scales (``models/layers.py::_dense_init``: normal / sqrt(fan_in),
+    fan_in the leading axis of each unstacked leaf; the expert tables'
+    leading axis is E; the Mamba leaves follow :func:`ssm.mamba_params`).
+    ``generator`` must live on ``device``. The homogeneous MoE stack's
+    expert tables are the engine's host tier (host memory, pinned on a
+    GPU); every other leaf, and every other stack's tables, live on
+    ``device``."""
+    kind = stack_kind(cfg)
+    dev = torch.device(device)
+    D = cfg.d_model
+    g = generator
+    slots, G, R = build_slots(cfg)
+    host = kind == "moe"
 
     def embed():
         w = torch.randn((cfg.vocab_size, D), generator=g, device=dev)
         return (w * D ** -0.5).to(torch.bfloat16)
 
-    def expert_table(shape):
-        host = torch.empty((L, E) + shape, dtype=torch.bfloat16,
-                           pin_memory=dev.type == "cuda")
-        for l in range(L):
-            for e in range(E):
-                w = torch.randn(shape, generator=g, device=dev)
-                host[l, e].copy_((w / math.sqrt(E)).to(torch.bfloat16))
-        return host
-
     params: Params = {"embed": embed(),
                       "final_norm": torch.ones(D, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed()
-    if kind == "mamba":
-        layers = [ssm.mamba_params(cfg, g, dev) for _ in range(L)]
-        params["scan"] = {"s0": {
-            "ln1": torch.ones((L, D), device=dev),
-            "mamba": {k: torch.stack([lp[k] for lp in layers])
-                      for k in layers[0]}}}
-        return params
-    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn_p = {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
-              "wv": stacked((D, Hk * hd)), "wo": stacked((H * hd, D))}
-    if cfg.qkv_bias:
-        # the reference's zero-initialized QKV biases
-        for name, n in (("bq", H * hd), ("bk", Hk * hd), ("bv", Hk * hd)):
-            attn_p[name] = torch.zeros((L, n), dtype=torch.bfloat16,
-                                       device=dev)
-    layer = {"ln1": torch.ones((L, D), device=dev), "attn": attn_p,
-             "ln2": torch.ones((L, D), device=dev)}
-    if kind == "dense":
-        F = cfg.d_ff
-        layer["ffn"] = {"w1": stacked((D, F)), "w3": stacked((D, F)),
-                        "w2": stacked((F, D))}
-    else:
-        E, F = cfg.moe.num_experts, cfg.moe.d_ff
-        layer["moe"] = {"router": stacked((D, E), torch.float32),
-                        "w1": expert_table((D, F)),
-                        "w3": expert_table((D, F)),
-                        "w2": expert_table((F, D))}
-    params["scan"] = {"s0": layer}
+    params["scan"] = {f"s{j}": _slot_params(cfg, slot, G, g, dev, host)
+                      for j, slot in enumerate(slots)}
+    if R:
+        params["rem"] = {f"r{j}": layer_params(_slot_params(
+            cfg, slots[j % len(slots)], 1, g, dev, host), 0)
+            for j in range(R)}
     return params
+
+
+# -- decode state ------------------------------------------------------------
+
+def _layer_state(cfg: ModelConfig, slot: Slot, batch: int, capacity: int,
+                 device) -> Params:
+    if slot.kind == "attn":
+        return attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
+                                  cfg.head_dim, device)
+    return ssm.init_ssm_state(cfg, batch, device)
 
 
 def init_state(cfg: ModelConfig, batch: int, capacity: int,
                device=None) -> Params:
-    """Decode state: per-layer KV stacked as [L, B, S, Hk, hd], or the
-    Mamba state (``conv`` [L, B, K-1, ci] bf16, ``ssd`` [L, B, nh, ds, hp]
-    fp32; ``capacity`` unused). The paged pool is the KV state with
-    ``(num_pages, page_size)`` in place of ``(batch, capacity)``: pages take
-    the batch role, as in the reference's ``init_slots``."""
-    if stack_kind(cfg) == "mamba":
-        one = ssm.init_ssm_state(cfg, batch, device)
-    else:
-        one = attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
-                                 cfg.head_dim, device)
-    return {"scan": {"s0": {name: t.expand(cfg.num_layers, *t.shape).clone()
-                            for name, t in one.items()}},
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    """Decode state mirroring the scan/rem parameter tree: an attention
+    slot's KV stacked as [G, B, S, Hk, hd], a Mamba slot's ``conv``
+    [G, B, K-1, ci] bf16 and ``ssd`` [G, B, nh, ds, hp] fp32 (``capacity``
+    unused); remainder layers without the [G] axis. The paged pool is the
+    KV state with ``(num_pages, page_size)`` in place of ``(batch,
+    capacity)``: pages take the batch role, as in the reference's
+    ``init_slots``."""
+    slots, G, R = build_slots(cfg)
+    state: Params = {"scan": {}, "pos": torch.zeros(
+        (), dtype=torch.int32, device=device)}
+    for j, slot in enumerate(slots):
+        one = _layer_state(cfg, slot, batch, capacity, device)
+        state["scan"][f"s{j}"] = {name: t.expand(G, *t.shape).clone()
+                                  for name, t in one.items()}
+    if R:
+        state["rem"] = {f"r{j}": _layer_state(cfg, slots[j % len(slots)],
+                                              batch, capacity, device)
+                        for j in range(R)}
+    return state
 
+
+# -- layers and the backbone -------------------------------------------------
 
 def _embed_inputs(params: Params, tokens: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
-    return embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    x = embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    if cfg.name.startswith("gemma"):
+        # the reference's rounding point: the scale itself is bf16 first
+        # (sqrt(2560) = 50.596 becomes 50.5), then one bf16 product
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
+                 mode: str, st: Optional[Params], pos, positions,
+                 pages=None, kv_write_min=None, kv_write_max=None,
+                 want_trace: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[Params],
+                            Optional[Params]]:
+    """One layer (the reference's ``_apply_layer``): attention or Mamba,
+    then the dense FFN, the MoE or nothing. Returns (x, new state, trace):
+    the new state is the prefill's KV or Mamba state, a decode step's
+    Mamba state, or None where the layer wrote its KV into ``st`` in
+    place (decode and segment attention); the trace (MoE slots with
+    ``want_trace``) holds the routing ``top_i``/``top_w`` [B, S, K] and
+    the post-ln2 hidden ``h2`` [B, S, D] from the same router weights and
+    h2 that the layer's MoE consults."""
+    B, S = x.shape[:2]
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    new = None
+    if slot.kind == "attn":
+        if mode == "prefill":
+            o, k, v = attn.prefill_attention(lp["attn"], h, positions, cfg,
+                                             slot.window)
+            new = {"k": k, "v": v}
+        elif mode == "decode":
+            o, _ = attn.decode_attention(lp["attn"], h, st, pos, cfg,
+                                         slot.window)
+        elif pages is not None:
+            o, _ = attn.segment_attention_paged(
+                lp["attn"], h, st, pos, positions, pages, cfg, slot.window,
+                kv_write_min, kv_write_max)
+        else:
+            o, _ = attn.segment_attention(lp["attn"], h, st, pos, positions,
+                                          cfg, slot.window)
+    elif mode == "decode":
+        o, new = ssm.mamba_apply(lp["mamba"], h, cfg, st, decode=True)
+    else:
+        o, new = ssm.mamba_apply(lp["mamba"], h, cfg,
+                                 ssm.init_ssm_state(cfg, B, x.device))
+    x = x + o
+    trace = None
+    if _slot_has_ffn(cfg, slot):
+        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if slot.is_moe:
+            f = moe_apply(lp["moe"], h2, cfg.moe,
+                          capacity_factor=cfg.moe.serve_capacity_factor)
+            if want_trace:
+                K = cfg.moe.top_k
+                _, top_i, top_w = route(lp["moe"]["router"],
+                                        h2.reshape(B * S, -1), K)
+                trace = {"top_i": top_i.reshape(B, S, K),
+                         "top_w": top_w.reshape(B, S, K), "h2": h2}
+        else:
+            f = ffn_apply(lp["ffn"], h2)
+        x = x + f
+    return x, new, trace
+
+
+def _collect(tree: Params, where: Tuple[str, str, Optional[int]],
+             value: Params) -> None:
+    """Files one layer's state or trace under tree[scan|rem][key]: a list
+    a scan slot (stacked on [G] afterwards), the value itself a remainder
+    layer."""
+    kind, key, g = where
+    if g is None:
+        tree.setdefault(kind, {})[key] = value
+    else:
+        tree.setdefault(kind, {}).setdefault(key, []).append(value)
+
+
+def _stacked(tree: Params) -> Params:
+    """Every scan slot's list of per-layer dicts stacked on a leading [G]."""
+    out = {}
+    for kind, slots in tree.items():
+        out[kind] = {key: ({name: torch.stack([d[name] for d in v])
+                            for name in v[0]} if isinstance(v, list) else v)
+                     for key, v in slots.items()}
+    return out
 
 
 def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -198,140 +353,80 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              pages: Optional[torch.Tensor] = None,
              kv_write_min=None, kv_write_max=None
              ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
-    """Embedding + all layers + final norm: an attention stack in prefill
-    or segment mode (and the dense stack in decode mode), the Mamba stack
-    in prefill or decode mode (:func:`_mamba_backbone`).
+    """Embedding + all layers in order + final norm.
 
     Prefill: tokens [B, S]; returns (hidden [B, S, D], decode state with
-    the prompt's KV and pos = S, trace). Each layer projects and ropes
-    q/k/v once; the cache keeps that K/V.
+    the prompt's KV and every Mamba layer's state, pos = S, trace). Each
+    attention layer projects and ropes q/k/v once; the cache keeps that
+    K/V. A Mamba layer starts from zero conv and SSD state and scans
+    through the ``ssd_scan`` kernel.
 
-    Segment (the reference's ``mode="segment"``): tokens [B, C] are one
-    prompt segment whose first token sits at ``state["pos"]`` (an int or
-    a 0-d tensor); the per-layer KV of ``state`` (dense [L, B, cap, ...]
-    or, with ``pages`` [B, max_pages], the paged pool [L, N, ps, ...])
-    carries the request's KV so far and takes the segment's own KV IN
-    PLACE (paged: only positions in ``[kv_write_min, kv_write_max)``).
-    Returns (hidden [B, C, D], state with pos + C, trace).
+    Segment (the reference's ``mode="segment"``, attention layers only):
+    tokens [B, C] are one prompt segment whose first token sits at
+    ``state["pos"]`` (an int or a 0-d tensor); the per-layer KV of
+    ``state`` (dense [G, B, cap, ...] or, with ``pages`` [B, max_pages],
+    the paged pool [G, N, ps, ...]) carries the request's KV so far and
+    takes the segment's own KV IN PLACE (paged: only positions in
+    ``[kv_write_min, kv_write_max)``). Returns (hidden [B, C, D], state
+    with pos + C, trace).
 
-    Decode (dense stack): tokens [B, 1] at positions ``state["pos"]`` (a
-    0-d tensor or [B]); each layer's new K/V lands IN PLACE in slot
-    ``min(pos, capacity-1)`` of ``state``'s cache and the flash-decode
-    kernel scores it. Returns (hidden [B, 1, D], state with pos + 1, None).
+    Decode (every stack but the engine's homogeneous MoE stack): tokens
+    [B, 1] at positions ``state["pos"]`` (a 0-d tensor or [B]); each
+    attention layer's new K/V lands IN PLACE in slot ``min(pos,
+    capacity-1)`` of ``state``'s cache and the flash-decode kernel scores
+    it with the layer's window; each Mamba layer steps its recurrence
+    into a new state. Returns (hidden [B, 1, D], state with pos + 1,
+    None).
 
-    With ``want_trace`` the trace holds every layer's routing
-    ``top_i``/``top_w`` [L, B, S, K] and post-ln2 hidden ``h2``
-    [L, B, S, D] under ``trace["scan"]["s0"]``, from the same router
-    weights and h2 that the layer's MoE consults."""
+    With ``want_trace`` (prefill and segment) the trace mirrors the
+    scan/rem tree for the MoE slots: ``trace["scan"]["s{j}"]`` holds
+    ``top_i``/``top_w`` [G, B, S, K] and ``h2`` [G, B, S, D] (remainder
+    MoE layers under ``trace["rem"]`` without the [G] axis)."""
     kind = stack_kind(cfg)
-    if kind == "mamba":
-        return _mamba_backbone(params, tokens, cfg, mode, state)
     if mode not in ("prefill", "segment", "decode"):
         raise NotImplementedError(f"backbone mode {mode!r} is not ported")
     if mode == "decode" and kind == "moe":
         raise NotImplementedError("the attention+MoE stack decodes in the "
                                   "collaborative engine")
-    slot = build_slots(cfg)[0][0]
+    if mode == "segment" and any(s.kind == "mamba"
+                                 for s in build_slots(cfg)[0]):
+        raise NotImplementedError(
+            "segment-streamed prefill supports attention layers only")
+    want_trace = want_trace and mode != "decode"
     x = _embed_inputs(params, tokens, cfg)
     B, S = tokens.shape
+    positions = None
     if mode == "decode":
         pos = torch.as_tensor(state["pos"], device=x.device)
     else:
         pos = int(state["pos"]) if mode == "segment" else 0
         positions = pos + torch.arange(S, device=x.device)[None]
-    lp_all = params["scan"]["s0"]
-    kv = state["scan"]["s0"] if mode != "prefill" else None
-    ks, vs, tis, tws, h2s = [], [], [], [], []
-    for layer in range(cfg.num_layers):
-        lp = layer_params(lp_all, layer)
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        if mode == "prefill":
-            o, k, v = attn.prefill_attention(lp["attn"], h, positions, cfg,
-                                             slot.window)
-            ks.append(k)
-            vs.append(v)
-        elif mode == "decode":
-            st = {"k": kv["k"][layer], "v": kv["v"][layer]}
-            o, _ = attn.decode_attention(lp["attn"], h, st, pos, cfg,
-                                         slot.window)
-        else:
-            st = {"k": kv["k"][layer], "v": kv["v"][layer]}
-            if pages is not None:
-                o, _ = attn.segment_attention_paged(
-                    lp["attn"], h, st, pos, positions, pages, cfg,
-                    slot.window, kv_write_min, kv_write_max)
-            else:
-                o, _ = attn.segment_attention(lp["attn"], h, st, pos,
-                                              positions, cfg, slot.window)
-        x = x + o
-        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        if kind == "dense":
-            f = ffn_apply(lp["ffn"], h2)
-        else:
-            f = moe_apply(lp["moe"], h2, cfg.moe,
-                          capacity_factor=cfg.moe.serve_capacity_factor)
-        if want_trace and kind == "moe":
-            K = cfg.moe.top_k
-            _, top_i, top_w = route(lp["moe"]["router"],
-                                    h2.reshape(B * S, -1), K)
-            tis.append(top_i.reshape(B, S, K))
-            tws.append(top_w.reshape(B, S, K))
-            h2s.append(h2)
-        x = x + f
+    new_states: Params = {}
+    traces: Params = {}
+    for kind_, key, g, slot in layer_order(cfg):
+        lp = _at(params[kind_][key], g)
+        st = _at(state[kind_][key], g) if mode != "prefill" else None
+        x, new, tr = _apply_layer(lp, x, slot, cfg, mode, st, pos,
+                                  positions, pages, kv_write_min,
+                                  kv_write_max, want_trace)
+        if new is not None:
+            _collect(new_states, (kind_, key, g), new)
+        if tr is not None:
+            _collect(traces, (kind_, key, g), tr)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if mode == "prefill":
-        new_state = {"scan": {"s0": {"k": torch.stack(ks),
-                                     "v": torch.stack(vs)}},
-                     "pos": torch.tensor(S, dtype=torch.int32)}
-    elif mode == "decode":
-        new_state = {"scan": state["scan"], "pos": state["pos"] + 1}
+        new_state = _stacked(new_states)
+        new_state["pos"] = torch.tensor(S, dtype=torch.int32)
     else:
-        new_state = {"scan": state["scan"],
-                     "pos": torch.tensor(pos + S, dtype=torch.int32)}
-    trace = None
-    if want_trace and kind == "moe":
-        trace = {"scan": {"s0": {"top_i": torch.stack(tis),
-                                 "top_w": torch.stack(tws),
-                                 "h2": torch.stack(h2s)}}}
+        # the attention slots' KV was written in place; a decode step's
+        # Mamba slots carry new states
+        new_state = {k: dict(v) for k, v in state.items() if k != "pos"}
+        for k, v in _stacked(new_states).items():
+            new_state[k].update(v)
+        new_state["pos"] = state["pos"] + 1 if mode == "decode" else \
+            torch.tensor(pos + S, dtype=torch.int32)
+    trace = _stacked(traces) if want_trace else None
     return x, new_state, trace
-
-
-def _mamba_backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                    mode: str, state: Optional[Params]
-                    ) -> Tuple[torch.Tensor, Params, None]:
-    """The attention-free Mamba stack (the reference's ``_apply_layer``
-    mamba branch). Prefill: tokens [B, S], every layer from zero conv and
-    SSD state, through the ``ssd_scan`` kernel. Decode: tokens [B, 1] and
-    the ``state`` of a prefill or an earlier step, through the recurrence.
-    Returns (hidden [B, S, D], new state with pos advanced, no trace)."""
-    if mode == "segment":
-        raise NotImplementedError(
-            "segment-streamed prefill supports attention layers only")
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"backbone mode {mode!r} is not ported")
-    x = _embed_inputs(params, tokens, cfg)
-    B, S = tokens.shape
-    lp_all = params["scan"]["s0"]
-    st_all = state["scan"]["s0"] if mode == "decode" else None
-    convs, ssds = [], []
-    for layer in range(cfg.num_layers):
-        lp = layer_params(lp_all, layer)
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        if mode == "decode":
-            st = {"conv": st_all["conv"][layer], "ssd": st_all["ssd"][layer]}
-            o, new = ssm.mamba_apply(lp["mamba"], h, cfg, st, decode=True)
-        else:
-            o, new = ssm.mamba_apply(lp["mamba"], h, cfg,
-                                     ssm.init_ssm_state(cfg, B, x.device))
-        x = x + o
-        convs.append(new["conv"])
-        ssds.append(new["ssd"])
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    pos = state["pos"] + 1 if mode == "decode" else \
-        torch.tensor(S, dtype=torch.int32, device=x.device)
-    return x, {"scan": {"s0": {"conv": torch.stack(convs),
-                               "ssd": torch.stack(ssds)}},
-               "pos": pos}, None
 
 
 def lm_logits(params: Params, x: torch.Tensor,

@@ -24,7 +24,6 @@ divergence must sit at a near tie of the reference's logits, and every
 step both sides decoded from the same tokens holds its logits within
 2^-5.
 """
-import dataclasses
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -271,12 +270,3 @@ def test_dense_segment_equals_prefill(runs):
     _close(xs[:, -1], x[:, -1].float().numpy(), 2 ** -6,
            "segmented vs one-shot prefill")
 
-
-def test_hybrid_stacks_still_raise():
-    cfg = reduced(get_config("jamba-v0.1-52b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        transformer.stack_kind(cfg)
-    moe2 = dataclasses.replace(reduced(get_config("mixtral-8x7b")),
-                               moe_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        transformer.stack_kind(moe2)

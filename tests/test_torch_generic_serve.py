@@ -189,7 +189,7 @@ def test_serve_generic_path_without_a_card_raises(monkeypatch):
         serve_cli.main(["--arch", "mamba2-370m", "--tokens", "2"])
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-large-v2"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
         serve_cli.main(["--arch", arch, "--device", "cpu", "--tokens", "2",

@@ -471,7 +471,10 @@ def _model_cases():
 @pytest.mark.parametrize("name, label", _model_cases())
 def test_kernels_match_plain_at_model_shapes(hopper, name, label):
     """Each kernel at a served model's shape: one launch, within one bf16
-    rounding of its plain version, and bitwise equal to a second launch."""
+    rounding of its plain version (ssd_scan's fp32 state as
+    ``_close_pair`` holds it), and bitwise equal to a second launch. The
+    hd 256 build of flash_decode (gemma3) and the (hp 64, ds 16) build of
+    ssd_scan (jamba) run only at these shapes."""
     entry = _entry(name)
     spec = dict(entry["cases"])[label]
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -480,5 +483,50 @@ def test_kernels_match_plain_at_model_shapes(hopper, name, label):
     got = entry["wrapper"](*args)
     torch.cuda.synchronize()
     assert launches()[name] == 1
-    assert torch.equal(got, entry["wrapper"](*args))
+    again = entry["wrapper"](*args)
+    if isinstance(got, tuple):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    else:
+        assert torch.equal(got, again)
+    _close_any(got, entry["plain"](*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pos, window", [([0, 700, 1131], -1),
+                                         ([5, 1500, 2047], 1024),
+                                         ([40, 1100, 2047], 96)])
+def test_flash_decode_head_dim_256_matches_plain(hopper, pos, window):
+    """The hd 256 build at ragged per-row positions, with and without a
+    window (several splits: 2048 keys), against the plain version."""
+    entry = _entry("flash_decode")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    spec = dict(B=3, S=2048, pos=pos, window=window, H=8, Hk=4, hd=256)
+    args = entry["inputs"](spec, gen)
+    reset_launches()
+    got = entry["wrapper"](*args)
+    torch.cuda.synchronize()
+    assert launches()["flash_decode"] == 1
     _close(got, entry["plain"](*args))
+
+
+@pytest.mark.gpu
+def test_head_dim_256_is_built_for_the_dense_cache_only(hopper):
+    """flash_decode at hd 256 takes up to 4 query heads a kv head; the paged
+    kernels are not built for 256 and raise ValueError before any launch."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    spec = dict(B=1, S=64, pos=[63], window=-1, H=8, Hk=1, hd=256)
+    args = _entry("flash_decode")["inputs"](spec, gen)
+    reset_launches()
+    with pytest.raises(ValueError, match="up to 4 query heads"):
+        dec.flash_decode(*args)
+    for name in ("paged_flash_decode", "paged_flash_prefill"):
+        entry = _entry(name)
+        args = list(entry["inputs"](_ragged(name)[0], gen))
+        for i in range(3):                   # q, k_pages, v_pages
+            args[i] = args[i][..., :32].repeat(*([1] * (args[i].dim() - 1)
+                                                 + [8])).contiguous()
+        assert args[0].shape[-1] == 256
+        with pytest.raises(ValueError, match="head_dim 256 not built"):
+            entry["wrapper"](*args)
+    assert sum(launches().values()) == 0

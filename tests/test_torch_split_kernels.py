@@ -24,6 +24,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from repro.kernels.decode_attention import decode_attention  # noqa: E402
 from repro.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec  # noqa: E402
@@ -70,6 +71,11 @@ SPLIT_DECODE_CASES = [
     (4, 8, 2, 32, 5000, [4999, 17, 2500, 0], 300, (8, 640)),
     # the same narrowed case at the host's choice for it: 16 splits of 320
     (4, 8, 2, 32, 5000, [4999, 17, 2500, 0], 300, None),
+    # gemma3-4b's widths (8/4 heads of 256, the dense-only hd 256 build) at
+    # its served capacity of 1132 keys, a local layer's window of 1024 and
+    # a global layer, at the host's choice of splits
+    (2, 8, 4, 256, 1132, [1130, 600], 1024, None),
+    (2, 8, 4, 256, 1132, [1130, 0], -1, None),
 ]
 
 
@@ -88,6 +94,23 @@ def test_flash_decode_split_matches_one_pass_and_ref(case):
         q, k, v, torch.from_numpy(pos), window))
     _close_one_rounding(got, decode_attention_ref(jq, jk, jv,
                                                   jnp.asarray(pos), window))
+
+
+@pytest.mark.parametrize("window", [-1, 1024, 300])
+def test_flash_decode_plain_matches_pallas_at_head_dim_256(window):
+    """gemma3's head dim: the plain version the CPU runs against the JAX
+    package's ``flash_decode`` Pallas kernel (interpret mode off-TPU, as
+    ``tests/test_kernels_attention.py`` runs it), per-row positions past
+    the window, within one bf16 rounding."""
+    rng = np.random.default_rng(13)
+    jq, q = _pair(rng, (2, 8, 256))
+    jk, k = _pair(rng, (2, 1536, 4, 256))
+    jv, v = _pair(rng, (2, 1536, 4, 256))
+    pos = np.asarray([1535, 1100], np.int32)
+    got = dec.flash_decode_plain(q, k, v, torch.from_numpy(pos), window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close_one_rounding(got, decode_attention(jq, jk, jv, jnp.asarray(pos),
+                                              window=window))
 
 
 def test_flash_decode_one_split_is_the_one_pass_softmax():

@@ -80,6 +80,10 @@ CASES = [
     (3, 37, 2, 64, 128, 256, False),
     (2, 256, 2, 64, 128, 256, True),
     (1, 513, 2, 64, 128, 256, False),
+    # jamba-v0.1-52b's Mamba widths (hp 64, ds 16, chunk 256): full chunks
+    # with a ragged tail and an incoming state, a single short chunk
+    (2, 600, 3, 64, 16, 256, True),
+    (1, 100, 4, 64, 16, 256, False),
 ]
 
 
@@ -104,6 +108,28 @@ def test_chunk_parallel_matches_model_ssd_chunked(case):
     _close(th.numpy(), np.asarray(jh), H_REL, "h")
 
 
+@pytest.mark.parametrize("case", [c for c in CASES if c[4] == 16], ids=str)
+def test_plain_scan_matches_model_ssd_chunked_at_d_state_16(case):
+    """``ssd_scan_plain`` (what the CPU runs, and what the card check holds
+    the kernels to) at jamba's widths against the reference's
+    ``ssd_chunked``: y within one bf16 rounding, h within 1e-4."""
+    B, S, nh, hp, ds, chunk, h0 = case
+    x, dt, A_log, Bm, Cm, state = _inputs(sum(case[:6]) + 2, B, S, nh, hp,
+                                          ds, h0)
+    jx, tx = _bf16(x)
+    jB, tB = _bf16(Bm)
+    jC, tC = _bf16(Cm)
+    jy, jh = jssm.ssd_chunked(jx, jnp.asarray(dt), jnp.asarray(A_log), jB,
+                              jC, None if state is None
+                              else jnp.asarray(state), chunk=chunk)
+    ty, th = ops.ssd_scan_plain(
+        tx, torch.from_numpy(dt), torch.from_numpy(A_log), tB, tC,
+        None if state is None else torch.from_numpy(state), chunk)
+    assert tuple(th.shape) == (B, nh, ds, hp)
+    _close(ty.float().numpy(), np.asarray(jy, np.float32), Y_REL, "y")
+    _close(th.numpy(), np.asarray(jh), H_REL, "h")
+
+
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_chunk_parallel_meets_the_card_tolerances(case):
     """Against the one-chunk-at-a-time plain version that the card check
@@ -119,7 +145,8 @@ def test_chunk_parallel_meets_the_card_tolerances(case):
     _close(h.numpy(), h_want.numpy(), CARD_H_REL, "h")
 
 
-@pytest.mark.parametrize("hp, ds, Q, n", [(32, 32, 64, 3), (64, 128, 256, 2)])
+@pytest.mark.parametrize("hp, ds, Q, n", [(32, 32, 64, 3), (64, 128, 256, 2),
+                                         (64, 16, 256, 2)])
 def test_chunk_parallel_matches_multi_chunk_ref_per_head(hp, ds, Q, n):
     """``ref.ssd_multi_chunk_ref`` takes one head's a = -exp(A_log) dt and
     dt-scaled x, chunk by chunk, from a given state; fp32 throughout."""
