@@ -2,8 +2,8 @@
 
 M-RoPE (3D temporal/height/width rotary), dynamic resolution. The vision
 frontend is a STUB — inputs include precomputed patch embeddings.
-[arXiv:2409.12191; hf] Registered so that ``--arch`` names it; the vlm
-front end and multimodal RoPE are not ported yet (ROADMAP slice 6).
+[arXiv:2409.12191; hf] Served on the generic path
+(``repro_torch.models.prefill`` takes ``patches`` and ``positions``).
 """
 from repro_torch.config import ModelConfig, register
 

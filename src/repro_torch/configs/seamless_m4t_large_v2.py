@@ -1,8 +1,7 @@
 """seamless-m4t-large-v2 [audio]: enc-dec, 24L each, d_model=1024 16H (kv=16)
 d_ff=8192 vocab=256206. Multimodal; the speech frontend is a STUB — inputs
-are precomputed frame embeddings. [arXiv:2308.11596; hf] Registered so that
-``--arch`` names it; encoder-decoder models are not ported yet (ROADMAP
-slice 6).
+are precomputed frame embeddings. [arXiv:2308.11596; hf] Served on the
+generic path through ``repro_torch.models.encdec``.
 """
 from repro_torch.config import ModelConfig, register
 

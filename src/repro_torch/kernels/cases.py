@@ -8,9 +8,11 @@ gives the kernel in ``chip_smoke.py``'s Mixtral serve phases (timed, and
 the numbers of the ``kernels`` line), ``long`` a long context (timed:
 32768 tokens, Mixtral's ``max_seq_len``, for attention; 65536 for the SSD
 scan), ``model:<arch>`` the shape another served model gives it (timed:
-phi35-moe's and qwen3-moe's decode steps, mistral-nemo's, smollm's and
-qwen2-72b's generic decode at 4 x 1024 prompt tokens plus 32 decoded,
-gemma3-4b's at 4 x 2048 plus 32, jamba's Mamba prefill),
+phi35-moe's and qwen3-moe's decode steps, mistral-nemo's, smollm's,
+qwen2-72b's, qwen2-vl-7b's and seamless-m4t-large-v2's generic decode at
+4 x 1024 prompt tokens plus 32 decoded (seamless's cross-attention over
+1024 frames too), gemma3-4b's at 4 x 2048 plus 32, jamba's Mamba
+prefill),
 ``ragged`` shapes that exercise the masked edges (checked only). Inputs
 are drawn on the card from the caller's generator; page tables from
 numpy, seeded. A wrapper returns one tensor or a tuple of them.
@@ -156,6 +158,19 @@ FLASH_DECODE_CASES = [
     ("model:gemma3-4b:global", dict(B=4, S=GEMMA_CAP,
                                     pos=[GEMMA_CAP - 2] * 4, window=-1,
                                     H=8, Hk=4, hd=256)),
+    # qwen2-vl-7b's generic decode at 4 x 1024 + 32 (28/4 heads of 128:
+    # group 7 on the 8-row build, one row idle), and seamless-m4t-large-v2's
+    # decoder at the same (16/16 heads of 64, MHA: group 1 on the 4-row
+    # build, three rows idle): its causal self-attention, and its
+    # cross-attention over the 1024 encoder frames, every key visible
+    ("model:qwen2-vl-7b", dict(B=4, S=GENERIC_CAP, pos=[GENERIC_CAP - 1] * 4,
+                               window=-1, H=28, Hk=4, hd=128)),
+    ("model:seamless-m4t-large-v2", dict(B=4, S=GENERIC_CAP,
+                                         pos=[GENERIC_CAP - 1] * 4,
+                                         window=-1, H=16, Hk=16, hd=64)),
+    ("model:seamless-m4t-large-v2:cross", dict(B=4, S=1024, pos=[1023] * 4,
+                                               window=-1, H=16, Hk=16,
+                                               hd=64)),
 ]
 
 

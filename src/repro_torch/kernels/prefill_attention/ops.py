@@ -57,14 +57,16 @@ def _lib() -> ctypes.CDLL:
 # -- plain versions ------------------------------------------------------------
 
 def _mask(Sq: int, chunk: int, c_start: int, window: int, q_offset,
-          kv_last, device) -> torch.Tensor:
+          kv_last, device, causal: bool = True) -> torch.Tensor:
     """Visible keys of one chunk, [b, Sq, chunk] (b = 1 when q_offset and
-    kv_last are scalars or absent)."""
+    kv_last are scalars or absent). Without ``causal`` a row sees every key
+    up to kv_last (and inside the window, as the reference's
+    ``_mask_for`` has it)."""
     q_pos = torch.as_tensor(q_offset, device=device).reshape(-1, 1) \
         + torch.arange(Sq, device=device)                    # [b, Sq]
     k_pos = c_start + torch.arange(chunk, device=device)
     dist = q_pos[:, :, None] - k_pos                          # [b, Sq, chunk]
-    mask = dist >= 0
+    mask = dist >= 0 if causal else torch.ones_like(dist, dtype=torch.bool)
     if window > 0:
         mask &= dist < window
     if kv_last is not None:
@@ -75,14 +77,17 @@ def _mask(Sq: int, chunk: int, c_start: int, window: int, q_offset,
 def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int = -1, q_offset=0,
                kv_last: Optional[torch.Tensor] = None,
-               chunk: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention over key chunks (the reference's
+               chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over key chunks (the reference's
     ``models/attention.py::_flash_fwd_scan``, forward only): fp32 scores of
     the hd^-0.5-scaled q, a running (m, l, acc) per query row, one rounding
     at the end. q [B, Sq, H, hd], query row i at position q_offset + i
     (q_offset scalar or [B]); k/v [B, Sk, Hk, hd]; kv_last [B] (optional):
-    keys past a row's last valid key are masked too. Returns [B, Sq, H, hd]
-    in q's dtype."""
+    keys past a row's last valid key are masked too. ``causal=False`` (an
+    encoder's self-attention, cross-attention) lets every row see every
+    key the window and kv_last leave. Past ``chunk`` keys, the keys come in
+    whole chunks, as the reference asserts. Returns [B, Sq, H, hd] in q's
+    dtype."""
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     group = H // Hk
@@ -97,7 +102,8 @@ def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         krep = k[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
         vrep = v[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
         s = torch.einsum("bqhd,bkhd->bqhk", qf, krep)
-        mask = _mask(Sq, chunk, c0, window, q_offset, kv_last, q.device)
+        mask = _mask(Sq, chunk, c0, window, q_offset, kv_last, q.device,
+                     causal)
         s = torch.where(mask[:, :, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])

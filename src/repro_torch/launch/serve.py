@@ -4,8 +4,9 @@ batching for a homogeneous MoE stack (mixtral-8x7b, phi35-moe,
 qwen3-moe-30b-a3b), the generic prefill + greedy decode loop for any other
 (the dense-FFN attention stacks smollm-360m, mistral-nemo-12b, qwen2-72b
 and gemma3-4b with its 5:1 sliding windows, the attention-free Mamba2
-stack, the jamba-v0.1-52b hybrid and llama4-maverick-400b-a17b's
-interleaved MoE with a shared expert).
+stack, the jamba-v0.1-52b hybrid, llama4-maverick-400b-a17b's
+interleaved MoE with a shared expert, qwen2-vl-7b's multimodal RoPE and
+the seamless-m4t-large-v2 encoder-decoder with its stub audio front end).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tokens 32 [--ways 2 --indexes 1 --policy lru] \
@@ -20,6 +21,11 @@ interleaved MoE with a shared expert).
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --batch 2 --prompt 40 --tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+        --batch 2 --prompt 40 --tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --batch 2 --prompt 40 --tokens 8 \
+        [--device cpu]
 
 Same flags and defaults as the reference (reduced config, seeded random
 weights; requests, and the generic path's prompt batch, drawn from
@@ -36,7 +42,8 @@ Prints tokens/s and, on the engine, the paper's cache, prefetch and
 host-lane counters.
 
 The generic path's decode state holds ``--prompt + --tokens`` KV
-positions in every attention layer (``prefill(..., capacity=)``); the
+positions in every attention layer (``prefill(..., capacity=)``; an
+encoder-decoder's self-attention, never its memory K/V); the
 reference's keeps the prompt's length, so its decode steps past the
 prompt overwrite the last cache slot (a sliding-window layer refuses
 that in the port).
@@ -129,7 +136,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def serve_generic(cfg, args) -> None:
     """The reference's generic path: one ``[batch, prompt]`` batch, prefill,
-    then greedy argmax for ``--tokens - 1`` decode steps."""
+    then greedy argmax for ``--tokens - 1`` decode steps. The audio family
+    also gets ``frames [batch, prompt, frontend_embed_dim]`` bf16, a seeded
+    normal draw, as the reference feeds its stub front end."""
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve --device cuda: no CUDA device available; "
@@ -139,8 +148,14 @@ def serve_generic(cfg, args) -> None:
         args.seed), dev)
     prompt = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt))
-    logits, state = prefill(params, {"tokens": torch.as_tensor(
-        prompt, device=dev)}, cfg, capacity=args.prompt + args.tokens)
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (args.batch, args.prompt, cfg.frontend_embed_dim),
+            generator=torch.Generator(device=dev).manual_seed(args.seed),
+            device=dev).to(torch.bfloat16)
+    logits, state = prefill(params, batch, cfg,
+                            capacity=args.prompt + args.tokens)
     tok = logits[:, -1].argmax(-1)[:, None]
     outs = [tok]
     t0 = time.time()

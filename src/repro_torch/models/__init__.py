@@ -1,5 +1,6 @@
+from . import encdec
 from .model import decode_step, init_params, init_state, prefill
 from .transformer import backbone, build_slots, lm_logits
 
-__all__ = ["backbone", "build_slots", "decode_step", "init_params",
+__all__ = ["backbone", "build_slots", "decode_step", "encdec", "init_params",
            "init_state", "lm_logits", "prefill"]

@@ -1,14 +1,17 @@
 """GQA attention: chunked-flash prefill, segment-streamed prefill and
-cached decode, over a dense cache or the paged KV pool (counterpart of the
-reference's ``models/attention.py``).
+cached decode, over a dense cache or the paged KV pool, and the
+encoder-decoder's cross-attention (counterpart of the reference's
+``models/attention.py``).
 
 Prefill and dense segments are plain tensor code, as they are XLA in the
 reference: matmul/einsum and softmax in fp32, never a fused attention
-operator. Decode is scored by the flash-decode kernels (dense and paged)
-and a paged segment by the paged-prefill kernel
-(:mod:`repro_torch.kernels`); on the CPU each wrapper runs its plain
-version. Layouts follow the reference: q [B, S, H, hd], k/v
-[B, S, Hk, hd], pool [num_pages, page_size, Hk, hd], GQA group = H // Hk.
+operator. Decode is scored by the flash-decode kernels (dense and paged;
+a decode step's cross-attention too) and a paged segment by the
+paged-prefill kernel (:mod:`repro_torch.kernels`); on the CPU each wrapper
+runs its plain version. Under ``cfg.mrope`` q and k turn by multimodal
+RoPE, positions ``[3, B, S]``. Layouts follow the reference: q
+[B, S, H, hd], k/v [B, S, Hk, hd], pool [num_pages, page_size, Hk, hd],
+GQA group = H // Hk.
 Unlike the reference, caches and pools are written in place.
 """
 from __future__ import annotations
@@ -22,7 +25,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   paged_flash_decode)
 from repro_torch.kernels.prefill_attention import (flash_scan,
                                                    paged_flash_prefill)
-from .layers import apply_rope, mm
+from .layers import apply_mrope, apply_rope, mm
 
 Params = Dict[str, torch.Tensor]
 
@@ -41,8 +44,11 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg):
 
 
 def _rope_qk(q, k, positions, cfg):
+    """q and k roped: positions [3, B, S] under ``cfg.mrope``, else
+    broadcastable to [B, S]."""
     if cfg.mrope:
-        raise NotImplementedError("multimodal RoPE is not ported")
+        return (apply_mrope(q, positions, cfg.rope_theta),
+                apply_mrope(k, positions, cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -61,21 +67,22 @@ def _out(p: Params, o: torch.Tensor, cfg) -> torch.Tensor:
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: int = -1, chunk: int = 1024,
-                  q_offset=0) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks (the reference's
+                  q_offset=0, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's
     ``_flash_fwd_scan``, forward only): query row i sits at absolute
-    position ``q_offset + i`` (an int or a [B] tensor). Returns
-    [B, Sq, H, hd] in q's dtype."""
-    return flash_scan(q, k, v, window, q_offset, None, chunk)
+    position ``q_offset + i`` (an int or a [B] tensor); ``causal=False``
+    unmasks every key. Returns [B, Sq, H, hd] in q's dtype."""
+    return flash_scan(q, k, v, window, q_offset, None, chunk, causal)
 
 
 def prefill_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                      cfg, window: int = -1):
-    """Full-sequence causal self attention (prefill), projecting once:
-    returns (output [B, S, D], roped k, v [B, S, Hk, hd]) so the caller
-    keeps the same K/V for the cache."""
+                      cfg, window: int = -1, causal: bool = True):
+    """Full-sequence self attention (prefill; an encoder's with
+    ``causal=False``), projecting once: returns (output [B, S, D], roped k,
+    v [B, S, Hk, hd]) so the caller keeps the same K/V for the cache."""
     q, k, v = _qkv(p, x, positions, cfg)
-    return _out(p, flash_forward(q, k, v, window=window), cfg), k, v
+    o = flash_forward(q, k, v, window=window, causal=causal)
+    return _out(p, o, cfg), k, v
 
 
 # -- segment-streamed prefill (q_len == C prompt tokens at offset pos) --------
@@ -186,11 +193,15 @@ def _decode_qkv(p: Params, x: torch.Tensor, pos, S: int, cfg, window: int):
     """The new token's q (as [B, H, hd]), k, v and its position [B] and
     cache slot ``min(pos, S-1)`` [B]. The kernels mask causality and the
     window with one position, the slot: beyond capacity the two differ,
-    so a windowed layer refuses it (the engine never gets there)."""
+    so a windowed layer refuses it (the engine never gets there). Under
+    M-RoPE all three streams take ``pos``, as the reference's decode does,
+    whatever grid positions the prefill used."""
     B = x.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).expand(B)
-    q, k_new, v_new = _qkv(p, x, pos_b[:, None], cfg)
+    posq = pos_b[None, :, None].expand(3, B, 1) if cfg.mrope \
+        else pos_b[:, None]
+    q, k_new, v_new = _qkv(p, x, posq, cfg)
     slot = torch.clamp(pos_b, max=S - 1)
     if window > 0 and bool((pos_b > S - 1).any()):
         raise ValueError(f"decode past the KV capacity {S} with a sliding "
@@ -266,3 +277,36 @@ def decode_attention_paged(p: Params, x: torch.Tensor, cache: Params,
                            real.reshape(-1).to(torch.int32), lastlen,
                            max_pages, window)
     return _out(p, o[:, None], cfg), cache
+
+
+# -- cross-attention (encoder-decoder) -----------------------------------------
+
+def encode_memory_kv(p: Params, memory: torch.Tensor, num_kv_heads: int,
+                     head_dim: int) -> Params:
+    """Cross-attention K/V from the encoder's output [B, Sm, D], computed
+    once a prefill (no RoPE): {"k", "v"} [B, Sm, Hk, hd]."""
+    B, Sm, _ = memory.shape
+    return {"k": mm(memory, p["wk"]).reshape(B, Sm, num_kv_heads, head_dim),
+            "v": mm(memory, p["wv"]).reshape(B, Sm, num_kv_heads, head_dim)}
+
+
+def cross_attention(p: Params, x: torch.Tensor,
+                    memory_kv: Params) -> torch.Tensor:
+    """x [B, Sq, D] attends to every key of the encoder memory's K/V
+    ``memory_kv`` [B, Sm, Hk, hd] (no RoPE on either side). A prompt's rows
+    run the flash scan with ``causal=False``; one query row (a decode step)
+    is scored by the flash-decode kernel with its query at the last memory
+    key, Sm - 1, so every key is visible: the reference's unmasked scan
+    for that row. Returns [B, Sq, D]."""
+    B, Sq, _ = x.shape
+    k, v = memory_kv["k"], memory_kv["v"]
+    hd = k.shape[3]
+    H = p["wq"].shape[1] // hd
+    q = mm(x, p["wq"]).reshape(B, Sq, H, hd)
+    if Sq == 1:
+        last = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
+                          device=x.device)
+        o = flash_decode(q[:, 0].contiguous(), k, v, last)[:, None]
+    else:
+        o = flash_forward(q, k, v, causal=False)
+    return mm(o.reshape(B, Sq, H * hd), p["wo"])

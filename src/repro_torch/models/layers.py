@@ -1,11 +1,12 @@
-"""Shared layers: RMSNorm, RoPE, the dense SwiGLU FFN, embeddings
-(counterpart of the reference's ``models/layers.py``). Compute dtype is
-bf16; normalisation and rotary statistics are taken in fp32, as in the
-reference."""
+"""Shared layers: RMSNorm, RoPE and multimodal RoPE, the dense SwiGLU
+FFN, embeddings and the stub front ends' projection (counterpart of the
+reference's ``models/layers.py``). Compute dtype is bf16; normalisation
+and rotary statistics are taken in fp32, as in the reference."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -69,11 +70,54 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
     angles = positions[..., None].float() * freqs            # [..., S, hd/2]
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, hd] rotated by fp32 angles [..., S, hd/2], one rounding
+    back to x's dtype."""
     cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, hd/2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int):
+    """Qwen2-VL's split of the hd/2 frequency channels into (temporal,
+    height, width) sections: h and w get 3/8 each, (16, 24, 24) at hd 128."""
+    half = head_dim // 2
+    hw = int(round(0.375 * half))
+    return (half - 2 * hw, hw, hw)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=None) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: [B, S, H, hd]; positions3: [3, B, S]
+    (temporal, height, width ids). Each section of frequency channels
+    turns with its own position stream; where the three streams coincide
+    (text) this is :func:`apply_rope` bit for bit."""
+    hd = x.shape[-1]
+    if sections is None:
+        sections = mrope_sections(hd)
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"head_dim {hd} // 2")
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    angles = positions3.to(x.device)[..., None].float() * freqs  # [3,B,S,hd/2]
+    bounds = np.cumsum((0,) + tuple(sections))
+    return _rotate(x, torch.cat([angles[i, ..., int(a):int(b)] for i, (a, b)
+                                 in enumerate(zip(bounds, bounds[1:]))],
+                                dim=-1))
+
+
+def frontend_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A stub front end's precomputed embeddings (patches or frames
+    [B, P, F]) through ``frontend_proj`` [F, D], rounded once to bf16: the
+    reference's ``(x @ w).astype(bf16)``, with its dtype promotion (an fp32
+    x makes an fp32 product)."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return mm(x.to(dtype), w.to(dtype)).to(torch.bfloat16)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

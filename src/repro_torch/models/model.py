@@ -4,16 +4,20 @@
     logits, state = prefill(params, {"tokens": tokens}, cfg)
     logits, state = decode_step(params, state, {"tokens": next_tok}, cfg)
 
-The same signatures as the reference's (``init_params`` and
-``init_state`` are the transformer's: the port has no encoder-decoder
-module). They serve every decoder stack the reference's generic path
-serves: dense-FFN attention stacks with any window pattern (gemma3's 5:1),
-the Mamba2 stack, hybrid attention/Mamba periods with MoE (jamba) and
-interleaved MoE with a shared expert (llama4). Stacks the port cannot run
-yet, encoder-decoder models and the vlm/audio front ends, raise
-``NotImplementedError`` (:func:`transformer.stack_kind`); the decode step
-of the attention+MoE stack is the collaborative engine's
-(:mod:`repro_torch.serving.engine`).
+The same signatures as the reference's, dispatching on ``cfg.is_encdec``
+as it does. They serve every stack the reference's generic path serves:
+dense-FFN attention stacks with any window pattern (gemma3's 5:1), the
+vlm family's multimodal RoPE with its patch front end (qwen2-vl), the
+Mamba2 stack, hybrid attention/Mamba periods with MoE (jamba),
+interleaved MoE with a shared expert (llama4), and the encoder-decoder
+stack with its audio front end (seamless-m4t,
+:mod:`repro_torch.models.encdec`). The decode step of the attention+MoE
+stack is the collaborative engine's (:mod:`repro_torch.serving.engine`).
+
+Batch layout: ``tokens`` [B, S] (the decoder's, encoder-decoder); at
+prefill only, the audio family's ``frames`` [B, S_enc, F], the vlm
+family's ``patches`` [B, P, F] (the stub front ends' embeddings) and
+``positions`` [3, B, S] (M-RoPE; text positions when absent).
 """
 from __future__ import annotations
 
@@ -22,47 +26,80 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from . import transformer
-from .transformer import init_params, init_state
+from . import encdec, transformer
 
 __all__ = ["decode_step", "init_params", "init_state", "prefill"]
 
 Params = Dict[str, Any]
 
 
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Params:
+    """Seeded random parameters with the reference's tree
+    (:func:`encdec.init_params` or :func:`transformer.init_params`)."""
+    if cfg.is_encdec:
+        return encdec.init_params(cfg, generator, device)
+    return transformer.init_params(cfg, generator, device)
+
+
+def init_state(cfg: ModelConfig, batch: int, capacity: int,
+               device=None) -> Params:
+    """A zero decode state; an encoder-decoder's memory K/V holds
+    ``capacity`` frames, as the reference's does."""
+    if cfg.is_encdec:
+        return encdec.init_state(cfg, batch, capacity, capacity, device)
+    return transformer.init_state(cfg, batch, capacity, device)
+
+
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             capacity: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
-    """tokens [B, S] -> (last-position logits [B, 1, V], decode state).
+    """tokens [B, S] (and the front ends' inputs) -> (last-position logits
+    [B, 1, V], decode state).
 
     An attention layer's state holds the prompt's S KV positions, as the
     reference's does: a decode step past them writes the last slot
     again. ``capacity`` (>= S) makes room for ``capacity - S`` decoded
     tokens in every attention layer's KV (under ``scan/s{j}`` with its
-    leading [G] and ``rem/r{j}`` without), zero-filled past the prompt;
-    Mamba layers' states have no positions and stay as they are."""
-    x, state, _ = transformer.backbone(params, batch["tokens"], cfg,
+    leading [G] and ``rem/r{j}`` without; an encoder-decoder's ``kv``),
+    zero-filled past the prompt. Mamba layers' states have no positions
+    and stay as they are; so does an encoder-decoder's ``memory_kv``,
+    whose keys cross-attention never masks (zero keys would enter its
+    softmax)."""
+    S = batch["tokens"].shape[1]
+    if cfg.is_encdec:
+        memory = encdec.encode(params, batch["frames"], cfg)
+        x, state = encdec.decode_stack(params, batch["tokens"], memory, cfg,
                                        "prefill")
+        caches = [state["kv"]]
+        lm = encdec.lm_logits
+    else:
+        x, state, _ = transformer.backbone(
+            params, batch["tokens"], cfg, "prefill",
+            patches=batch.get("patches"), positions=batch.get("positions"))
+        caches = [kv for tree in (state["scan"], state.get("rem", {}))
+                  for kv in tree.values() if "k" in kv]
+        lm = transformer.lm_logits
     if capacity is not None:
-        S = batch["tokens"].shape[1]
         if capacity < S:
             raise ValueError(f"capacity {capacity} < prompt length {S}")
-        for tree in (state["scan"], state.get("rem", {})):
-            for kv in tree.values():
-                if "k" not in kv:
-                    continue
-                for name in ("k", "v"):
-                    t = kv[name]
-                    ax = t.dim() - 3                 # the key axis
-                    kv[name] = torch.cat([t, t.new_zeros(
-                        t.shape[:ax] + (capacity - S,) + t.shape[ax + 1:])],
-                        dim=ax)
-    return transformer.lm_logits(params, x[:, -1:, :], cfg), state
+        for kv in caches:
+            for name in ("k", "v"):
+                t = kv[name]
+                ax = t.dim() - 3                     # the key axis
+                kv[name] = torch.cat([t, t.new_zeros(
+                    t.shape[:ax] + (capacity - S,) + t.shape[ax + 1:])],
+                    dim=ax)
+    return lm(params, x[:, -1:, :], cfg), state
 
 
 def decode_step(params: Params, state: Params,
                 batch: Dict[str, torch.Tensor], cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for every sequence in the batch. tokens: [B, 1]."""
+    if cfg.is_encdec:
+        x, state = encdec.decode_stack(params, batch["tokens"], None, cfg,
+                                       "decode", state=state)
+        return encdec.lm_logits(params, x, cfg), state
     x, state, _ = transformer.backbone(params, batch["tokens"], cfg,
                                        "decode", state=state)
     return transformer.lm_logits(params, x, cfg), state

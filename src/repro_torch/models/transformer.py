@@ -7,8 +7,11 @@ pattern: 1 for llama-likes and Mamba2, 6 for gemma3, 8 for jamba, 2 for
 llama4): ``G = L // P`` groups of the period, then the ``L % P``
 remainder layers. Each slot is attention or Mamba, then a dense SwiGLU
 FFN, the MoE or nothing (:func:`_slot_has_ffn`), with its own window.
-Encoder-decoder models and the vlm/audio front ends raise
-``NotImplementedError`` (ROADMAP slice 6).
+The vlm family (qwen2-vl) is such a stack with multimodal RoPE and a stub
+patch front end: precomputed patch embeddings through ``frontend_proj``
+replace the first prompt embeddings, and ``positions`` [3, B, S] carry
+the (temporal, height, width) ids. Encoder-decoder models are
+:mod:`repro_torch.models.encdec`'s.
 
 The parameter tree mirrors the reference's: slot j of the period under
 ``params["scan"]["s{j}"]``, every leaf with a leading ``[G]`` axis
@@ -41,8 +44,8 @@ import torch
 from repro_torch.config import ModelConfig
 from . import attention as attn
 from . import ssm
-from .layers import (dense_init, embed_lookup, ffn_apply, logits_from_embed,
-                     rmsnorm)
+from .layers import (dense_init, embed_lookup, ffn_apply, frontend_project,
+                     logits_from_embed, rmsnorm)
 from .moe import moe_apply, route
 
 Params = Dict[str, Any]
@@ -77,15 +80,11 @@ def stack_kind(cfg: ModelConfig) -> str:
     engine serves (one slot, no remainder), ``"dense"`` for a stack of
     attention layers with dense FFNs (any window pattern), ``"mamba"`` for
     an attention-free Mamba stack without FFN, ``"mixed"`` for any other
-    period (hybrid attention/Mamba, interleaved MoE). Raises
-    ``NotImplementedError`` (naming the ROADMAP slice) for the stacks the
-    port cannot run yet: encoder-decoder and the vlm/audio front ends."""
+    period (hybrid attention/Mamba, interleaved MoE), ``"encdec"`` for an
+    encoder-decoder model (:mod:`repro_torch.models.encdec`, not this
+    module's stack)."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not ported yet (ROADMAP slice 6)")
-    if cfg.frontend_embed_dim or cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} front end "
-                                  f"is not ported yet (ROADMAP slice 6)")
+        return "encdec"
     slots, _, R = build_slots(cfg)
     if len(slots) == 1 and not R and slots[0].kind == "attn" \
             and slots[0].is_moe:
@@ -130,6 +129,35 @@ def _at(tree: Params, g: Optional[int]) -> Params:
 
 # -- parameters --------------------------------------------------------------
 
+def stacked_init(shape, n: int, g: torch.Generator, dev,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """n draws of :func:`dense_init` stacked on a leading [n] axis."""
+    return torch.stack([dense_init(shape, g, dev, dtype=dtype)
+                        for _ in range(n)])
+
+
+def attn_params(cfg: ModelConfig, n: int, g: torch.Generator, dev,
+                qkv_bias: bool = False) -> Params:
+    """n layers' q/k/v/o projections stacked on [n] (the reference's
+    ``attn_params``), with its zero-initialized QKV biases if asked."""
+    D, H, Hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    a = {"wq": stacked_init((D, H * hd), n, g, dev),
+         "wk": stacked_init((D, Hk * hd), n, g, dev),
+         "wv": stacked_init((D, Hk * hd), n, g, dev),
+         "wo": stacked_init((H * hd, D), n, g, dev)}
+    if qkv_bias:
+        for name, w in (("bq", H * hd), ("bk", Hk * hd), ("bv", Hk * hd)):
+            a[name] = torch.zeros((n, w), dtype=torch.bfloat16, device=dev)
+    return a
+
+
+def ffn_params(D: int, F: int, n: int, g: torch.Generator, dev) -> Params:
+    """n layers' dense SwiGLU FFN (w1, w3 [D, F], w2 [F, D]) on [n]."""
+    return {"w1": stacked_init((D, F), n, g, dev),
+            "w3": stacked_init((D, F), n, g, dev),
+            "w2": stacked_init((F, D), n, g, dev)}
+
+
 def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
                  dev: torch.device, host_experts: bool) -> Params:
     """n layers of one slot, every leaf stacked on a leading [n] axis, with
@@ -138,10 +166,6 @@ def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
     ``dev`` one expert at a time; with ``host_experts`` they land in host
     memory, pinned when ``dev`` is a GPU."""
     D = cfg.d_model
-
-    def stacked(shape, dtype=torch.bfloat16):
-        return torch.stack([dense_init(shape, g, dev, dtype=dtype)
-                            for _ in range(n)])
 
     def expert_table(shape):
         out = torch.empty((n, E) + shape, dtype=torch.bfloat16,
@@ -153,22 +177,9 @@ def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
                 out[l, e].copy_((w / math.sqrt(E)).to(torch.bfloat16))
         return out
 
-    def ffn(F):
-        return {"w1": stacked((D, F)), "w3": stacked((D, F)),
-                "w2": stacked((F, D))}
-
     layer: Params = {"ln1": torch.ones((n, D), device=dev)}
     if slot.kind == "attn":
-        H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        a = {"wq": stacked((D, H * hd)), "wk": stacked((D, Hk * hd)),
-             "wv": stacked((D, Hk * hd)), "wo": stacked((H * hd, D))}
-        if cfg.qkv_bias:
-            # the reference's zero-initialized QKV biases
-            for name, w in (("bq", H * hd), ("bk", Hk * hd),
-                            ("bv", Hk * hd)):
-                a[name] = torch.zeros((n, w), dtype=torch.bfloat16,
-                                      device=dev)
-        layer["attn"] = a
+        layer["attn"] = attn_params(cfg, n, g, dev, cfg.qkv_bias)
     else:
         layers = [ssm.mamba_params(cfg, g, dev) for _ in range(n)]
         layer["mamba"] = {k: torch.stack([lp[k] for lp in layers])
@@ -178,14 +189,16 @@ def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
         if slot.is_moe:
             m = cfg.moe
             E, F = m.num_experts, m.d_ff
-            layer["moe"] = {"router": stacked((D, E), torch.float32),
+            layer["moe"] = {"router": stacked_init((D, E), n, g, dev,
+                                                   torch.float32),
                             "w1": expert_table((D, F)),
                             "w3": expert_table((D, F)),
                             "w2": expert_table((F, D))}
             if m.num_shared_experts:
-                layer["moe"]["shared"] = ffn(F * m.num_shared_experts)
+                layer["moe"]["shared"] = ffn_params(
+                    D, F * m.num_shared_experts, n, g, dev)
         else:
-            layer["ffn"] = ffn(cfg.d_ff)
+            layer["ffn"] = ffn_params(D, cfg.d_ff, n, g, dev)
     return layer
 
 
@@ -195,11 +208,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     scales (``models/layers.py::_dense_init``: normal / sqrt(fan_in),
     fan_in the leading axis of each unstacked leaf; the expert tables'
     leading axis is E; the Mamba leaves follow :func:`ssm.mamba_params`).
+    A front end adds ``frontend_proj`` [frontend_embed_dim, D].
     ``generator`` must live on ``device``. The homogeneous MoE stack's
     expert tables are the engine's host tier (host memory, pinned on a
     GPU); every other leaf, and every other stack's tables, live on
     ``device``."""
-    kind = stack_kind(cfg)
+    kind = _decoder_only(cfg)
     dev = torch.device(device)
     D = cfg.d_model
     g = generator
@@ -214,6 +228,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                       "final_norm": torch.ones(D, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed()
+    if cfg.frontend_embed_dim:
+        params["frontend_proj"] = dense_init((cfg.frontend_embed_dim, D), g,
+                                             dev)
     params["scan"] = {f"s{j}": _slot_params(cfg, slot, G, g, dev, host)
                       for j, slot in enumerate(slots)}
     if R:
@@ -258,9 +275,26 @@ def init_state(cfg: ModelConfig, batch: int, capacity: int,
 
 # -- layers and the backbone -------------------------------------------------
 
-def _embed_inputs(params: Params, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def _decoder_only(cfg: ModelConfig) -> str:
+    """:func:`stack_kind` of a stack this module runs; raises for an
+    encoder-decoder model."""
+    kind = stack_kind(cfg)
+    if kind == "encdec":
+        raise ValueError(f"{cfg.name}: an encoder-decoder model runs in "
+                         f"repro_torch.models.encdec")
+    return kind
+
+
+def _embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings; with the vlm front end's ``patches`` [B, P, F]
+    (prefill; decode steps are text) and S > P, the first P rows are the
+    patches through ``frontend_proj``, rounded to bf16."""
     x = embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    if cfg.family == "vlm" and patches is not None \
+            and x.shape[1] > patches.shape[1]:
+        pe = frontend_project(patches.to(x.device), params["frontend_proj"])
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     if cfg.name.startswith("gemma"):
         # the reference's rounding point: the scale itself is bf16 first
         # (sqrt(2560) = 50.596 becomes 50.5), then one bf16 product
@@ -325,6 +359,17 @@ def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
     return x, new, trace
 
 
+def _positions(given: Optional[torch.Tensor], cfg: ModelConfig, S: int,
+               B: int, device, start: int = 0) -> torch.Tensor:
+    """Rotary positions of S tokens from ``start``: [1, S], or under M-RoPE
+    ``given`` [3, B, S] (prefill) or else t = h = w = the text position,
+    [3, B, S]."""
+    if cfg.mrope and given is not None:
+        return given.to(device)
+    p = start + torch.arange(S, device=device)[None]
+    return p.expand(B, S)[None].expand(3, B, S) if cfg.mrope else p
+
+
 def _collect(tree: Params, where: Tuple[str, str, Optional[int]],
              value: Params) -> None:
     """Files one layer's state or trace under tree[scan|rem][key]: a list
@@ -351,7 +396,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              mode: str = "prefill", want_trace: bool = False,
              state: Optional[Params] = None,
              pages: Optional[torch.Tensor] = None,
-             kv_write_min=None, kv_write_max=None
+             kv_write_min=None, kv_write_max=None,
+             patches: Optional[torch.Tensor] = None,
+             positions: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
     """Embedding + all layers in order + final norm.
 
@@ -359,7 +406,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     the prompt's KV and every Mamba layer's state, pos = S, trace). Each
     attention layer projects and ropes q/k/v once; the cache keeps that
     K/V. A Mamba layer starts from zero conv and SSD state and scans
-    through the ``ssd_scan`` kernel.
+    through the ``ssd_scan`` kernel. The vlm family takes ``patches``
+    [B, P, F] (:func:`_embed_inputs`) and, under M-RoPE, ``positions``
+    [3, B, S] (:func:`_positions`); other modes ignore both.
 
     Segment (the reference's ``mode="segment"``, attention layers only):
     tokens [B, C] are one prompt segment whose first token sits at
@@ -382,7 +431,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     scan/rem tree for the MoE slots: ``trace["scan"]["s{j}"]`` holds
     ``top_i``/``top_w`` [G, B, S, K] and ``h2`` [G, B, S, D] (remainder
     MoE layers under ``trace["rem"]`` without the [G] axis)."""
-    kind = stack_kind(cfg)
+    kind = _decoder_only(cfg)
     if mode not in ("prefill", "segment", "decode"):
         raise NotImplementedError(f"backbone mode {mode!r} is not ported")
     if mode == "decode" and kind == "moe":
@@ -393,14 +442,18 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(
             "segment-streamed prefill supports attention layers only")
     want_trace = want_trace and mode != "decode"
-    x = _embed_inputs(params, tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg,
+                      patches if mode == "prefill" else None)
     B, S = tokens.shape
-    positions = None
     if mode == "decode":
         pos = torch.as_tensor(state["pos"], device=x.device)
+        positions = None
+    elif mode == "segment":
+        pos = int(state["pos"])
+        positions = _positions(None, cfg, S, B, x.device, pos)
     else:
-        pos = int(state["pos"]) if mode == "segment" else 0
-        positions = pos + torch.arange(S, device=x.device)[None]
+        pos = 0
+        positions = _positions(positions, cfg, S, B, x.device)
     new_states: Params = {}
     traces: Params = {}
     for kind_, key, g, slot in layer_order(cfg):

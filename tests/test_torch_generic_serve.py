@@ -37,6 +37,7 @@ from repro_torch import models  # noqa: E402
 from repro_torch.bridge import params_from_numpy, tensor_to_numpy  # noqa: E402
 from repro_torch.config import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.serving import build  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 torch.set_num_threads(2)
@@ -190,13 +191,20 @@ def test_serve_generic_path_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-large-v2"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        serve_cli.main(["--arch", arch, "--device", "cpu", "--tokens", "2",
-                        "--prompt", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        models.init_params(reduced(get_config(arch)),
-                           torch.Generator().manual_seed(0), "cpu")
+def test_unported_archs_raise(arch, capsys):
+    """The vlm and encoder-decoder archs serve on the generic path (the
+    CLI and ``init_params`` run without raising); what still raises for
+    them is the collaborative engine, which serves homogeneous
+    attention+MoE stacks only, as the reference's does."""
+    serve_cli.main(["--arch", arch, "--device", "cpu", "--tokens", "2",
+                    "--prompt", "4"])
+    out = capsys.readouterr().out
+    assert f"generic path: {arch}" in out and "generated (1, 2)" in out
+    cfg = reduced(get_config(arch))
+    params = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert "frontend_proj" in params
+    with pytest.raises(ValueError, match="homogeneous"):
+        build(cfg, params=params, device="cpu")
 
 
 def test_mamba_stack_refuses_segment_mode(runs):

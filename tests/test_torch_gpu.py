@@ -530,3 +530,66 @@ def test_head_dim_256_is_built_for_the_dense_cache_only(hopper):
         with pytest.raises(ValueError, match="head_dim 256 not built"):
             entry["wrapper"](*args)
     assert sum(launches().values()) == 0
+
+
+# -- the vlm and encoder-decoder stacks' decode step ---------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch, overrides", [
+    ("qwen2-vl-7b", {}), ("seamless-m4t-large-v2", dict(num_kv_heads=4))])
+def test_front_end_stacks_decode_on_card_as_on_the_cpu(hopper, arch,
+                                                       overrides):
+    """The reduced qwen2-vl (patches on a grid, M-RoPE) and seamless (frames,
+    MHA) with the same weights and inputs: prefill and one decode step on
+    the card, its attention through ``flash_decode`` (qwen2-vl once a
+    layer, seamless's self- and cross-attention twice), against the CPU's
+    plain path. Logits within 2^-5 of the largest (bf16 products that sum
+    in other orders, 2 layers deep; as the CPU tests against the
+    reference)."""
+    from repro_torch import models
+    from repro_torch.config import get_config, reduced
+    cfg = reduced(get_config(arch), **overrides)
+    params = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(16)
+    B, S = 2, 40
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (B, S)))}
+    if cfg.family == "vlm":
+        P = 16
+        pos = torch.arange(S).expand(3, B, S).clone()
+        pos[0, :, :P] = 0
+        pos[1, :, :P] = torch.arange(P) // 4
+        pos[2, :, :P] = torch.arange(P) % 4
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (B, P, cfg.frontend_embed_dim)), dtype=torch.float32).to(
+                torch.bfloat16)
+        batch["positions"] = pos
+    else:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, 24, cfg.frontend_embed_dim)), dtype=torch.float32).to(
+                torch.bfloat16)
+    nxt = {"tokens": batch["tokens"][:, :1]}
+    want = []
+    for dev in ("cpu", "cuda"):
+        p = _on(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, st = models.prefill(p, b, cfg, capacity=S + 1)
+        reset_launches()
+        logits, st = models.decode_step(p, st, {k: v.to(dev) for k, v
+                                                in nxt.items()}, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            per_layer = 2 if cfg.is_encdec else 1
+            assert launches()["flash_decode"] == per_layer * cfg.num_layers
+            assert int(st["pos"]) == S + 1
+        want.append(logits.float().cpu())
+    tol = 2 ** -5 * want[0].abs().max().item()
+    assert torch.isfinite(want[1]).all()
+    assert (want[1] - want[0]).abs().max().item() <= tol
+
+
+def _on(tree, dev):
+    """A parameter tree's copy on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
