@@ -106,8 +106,23 @@ Phases, in order; any failure exits non-zero:
      against 512 and a decode step, the frames held fixed. Phases 21-22
      print the weight-read bound of a decode step and where two more
      steps' time goes, and free their weights;
- 23. the ``kernels`` line (launch counts from the serve phases alone, by
-     phase and summed; times at the served, long and other models'
+ 23. training, with the kernels' launch counts set to 0 before and read
+     after (they must stay 0: train mode reaches no kernel): (a)
+     ``repro_torch.launch.train``'s code path at smollm-360m's full size
+     (32 layers, tied embeddings, seeded random weights), 20 steps of
+     8 x 256 synthetic tokens with checkpoints every 5 steps (under
+     ``build/train_ckpt``) and a failure injected at step 7, every step's
+     loss and grad norm printed; then the same run uninterrupted, and the
+     two final losses held together; step time, tok/s, peak HBM and
+     restarts of each; (b) Mixtral-8x7B at its published widths with
+     ``num_layers`` cut 32 -> 2 (3.16 B parameters, every expert table on
+     the card), 4 steps of 2 x 256 tokens: loss, aux, grad norm, step
+     time, peak HBM; where a step's time goes for (a) and (b) (the
+     profiler); (c) ``loss_fn`` and every gradient of one reduced
+     config a family (dense, MoE, Mamba, gemma3's mixed period, vlm,
+     audio) on the card against the CPU, same weights and batch;
+ 24. the ``kernels`` line (launch counts from the serve and train phases,
+     by phase and summed; times at the served, long and other models'
      shapes) and the result line.
 Prints nothing of the result when no GPU is present.
 """
@@ -116,6 +131,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import resource
 import subprocess
 import sys
@@ -168,6 +184,16 @@ VLM = dict(arch="qwen2-vl-7b", batch=4, prompt=1024, patches=64, grid=8,
 # prompt; its frames stay the phase's 1024)
 ENCDEC = dict(arch="seamless-m4t-large-v2", batch=4, frames=1024,
               prompt=1024, new_tokens=32, check_len=513)
+# phase 23: training. smollm-360m at its full size through the trainer
+# (checkpoints every 5 steps, a failure injected at step 7); Mixtral-8x7B
+# at its published widths with 2 of its 32 layers (its 3.16 B parameters'
+# weights, gradients, fp32 master and moments take about 51 GB); one
+# reduced config a family against the CPU
+TRAIN = dict(arch="smollm-360m", steps=20, batch=8, seq=256, ckpt_every=5,
+             failure=7)
+MIXTRAL_TRAIN = dict(layers=2, batch=2, seq=256, steps=4)
+TRAIN_CHECK = ("smollm-360m", "mixtral-8x7b", "mamba2-370m", "gemma3-4b",
+               "qwen2-vl-7b", "seamless-m4t-large-v2")
 
 
 def card_line() -> str:
@@ -268,7 +294,9 @@ def check_kernels(kernels):
                 err = max(err, e)
             if label in ("served", "long") or label.startswith("model:"):
                 ms = time_ms(lambda: wrapper(*args))
-                dev_ms = device_ms(lambda: wrapper(*args))
+                # a profile that saw no device time is taken once more
+                dev_ms = device_ms(lambda: wrapper(*args)) \
+                    or device_ms(lambda: wrapper(*args))
                 plain_ms = time_ms(lambda: plain(*args), iters=3)
                 lib = k["library"](args) if k["library"] else None
                 lib_ms = time_ms(lib) if lib is not None else None
@@ -1691,6 +1719,225 @@ def serve_encdec():
     return launches
 
 
+def _train_args(ckpt_dir: Path, **kw):
+    """The trainer's arguments (``repro_torch.launch.train``) for phase 23:
+    smollm-360m at its full size (``--full``), 8 x 256 tokens a step."""
+    from repro_torch.launch import train
+    argv = ["--arch", TRAIN["arch"], "--full", "--steps",
+            str(TRAIN["steps"]), "--batch", str(TRAIN["batch"]), "--seq",
+            str(TRAIN["seq"]), "--ckpt-dir", str(ckpt_dir), "--device",
+            "cuda"]
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return train.parser().parse_args(argv)
+
+
+def _train_summary(label: str, out: dict, batch: int, seq: int) -> None:
+    steps = sorted(out["history"])
+    times = sorted(out["history"][i][4] for i in steps)
+    med = times[len(times) // 2]
+    print(f"[{label}] {len(steps)} steps of {batch} x {seq}: step "
+          f"{med * 1e3:.3f} ms (median; {times[0] * 1e3:.3f}-"
+          f"{times[-1] * 1e3:.3f}), {batch * seq / med:.1f} tok/s a step, "
+          f"{out['tok_per_s']:.1f} tok/s over the run (checkpoints "
+          f"included), peak HBM {out.get('peak_hbm_gb', 0):.2f} GB, "
+          f"restarts {out['restarts']}")
+
+
+def _profile_train(step, params, opt, batches, label: str):
+    """Where a train step's time goes (``torch.profiler``): device time by
+    kind against the wall, and device operations a step. Returns the
+    updated (params, opt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = len(batches)
+    print(f"[profile] {label}: {n} train step(s):")
+    _report(prof, wall_ms, n, label, "step")
+    ops = sum(e.count for e in prof.key_averages() if _device_ms(e) > 0)
+    print(f"[profile] {label}: {ops / n:.0f} device operations a step")
+    return params, opt
+
+
+def train_smollm():
+    """Phase 23a: ``repro_torch.launch.train``'s code path at smollm-360m's
+    full published size (32 layers, d_model 960, 15/5 heads of 64, d_ff
+    2560, tied embeddings; seeded random weights) for 20 steps of 8 x 256
+    synthetic tokens, checkpoints every 5 steps and a failure injected at
+    step 7 (restored from step 5); then the same run uninterrupted (one
+    step-0 checkpoint). Prints every step's loss and grad norm, the step
+    time, tok/s, peak HBM and restarts, and the two runs' final losses:
+    equal up to the device's reduction order, within 2^-8 relative; then
+    where two more steps' time goes."""
+    import shutil
+    import torch
+    from repro_torch.config import OptimizerConfig, ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import make_train_step
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for label, kw in (("recovered", dict(ckpt_every=TRAIN["ckpt_every"],
+                                          inject_failure=TRAIN["failure"])),
+                      ("uninterrupted", dict(ckpt_every=10 ** 6))):
+        out = train.run(_train_args(root / label, **kw), log_every=1)
+        _train_summary(f"train {TRAIN['arch']} {label}", out,
+                       TRAIN["batch"], TRAIN["seq"])
+        bad = [i for i, h in out["history"].items()
+               if not all(map(math.isfinite, h[:4]))]
+        if bad or sorted(out["history"]) != list(range(TRAIN["steps"])):
+            raise SystemExit(f"train {label}: steps {bad} not finite, or "
+                             f"steps missing")
+        runs[label] = out
+        if label == "uninterrupted":
+            cfg, n = out["cfg"], TRAIN["steps"]
+            data = SyntheticLM(cfg, ShapeConfig("t", TRAIN["seq"],
+                                                TRAIN["batch"], "train"))
+            _profile_train(
+                make_train_step(cfg, OptimizerConfig(warmup_steps=10,
+                                                     total_steps=n)),
+                *out["state"], [train.to_device(data.batch(i), "cuda")
+                                for i in (n, n + 1)],
+                f"train {TRAIN['arch']}")
+        del out["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    last = TRAIN["steps"] - 1
+    rec = runs["recovered"]["history"][last][0]
+    clean = runs["uninterrupted"]["history"][last][0]
+    tol = 2 ** -8 * abs(clean)
+    ok = runs["recovered"]["restarts"] == 1 and abs(rec - clean) <= tol
+    print(f"[train] final loss (step {last}): recovered {rec:.6f}, "
+          f"uninterrupted {clean:.6f}, difference {abs(rec - clean):.3g} "
+          f"(tol {tol:.3g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train: the recovered run does not match the "
+                         "uninterrupted one")
+    first = runs["uninterrupted"]["history"][0][0]
+    if not clean < first:
+        raise SystemExit(f"train: the loss did not fall ({first:.4f} -> "
+                         f"{clean:.4f})")
+
+
+def train_mixtral():
+    """Phase 23b: Mixtral-8x7B at its published widths with ``num_layers``
+    cut 32 -> 2 (3.16 B parameters: bf16 weights and gradients, fp32
+    master and moments, about 51 GB), every expert table on the card: a
+    few train steps of 2 x 256 synthetic tokens through
+    ``make_train_step``, with loss, aux, grad norm, step time and peak
+    HBM."""
+    import torch
+    from repro_torch.config import OptimizerConfig, ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state, make_train_step
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=MIXTRAL_TRAIN["layers"])
+    B, S, n = (MIXTRAL_TRAIN[k] for k in ("batch", "seq", "steps"))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", host_experts=False)
+    opt = init_opt_state(params)
+    print(f"[train mixtral] {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters; weights and "
+          f"optimizer state {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1,
+                                                total_steps=n))
+    data = SyntheticLM(cfg, ShapeConfig("t", S, B, "train"), seed=0)
+    times = []
+    for i in range(n):
+        batch = to_device(data.batch(i), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"[train mixtral] step {i}: loss {vals['loss']:.4f} xent "
+              f"{vals['xent']:.4f} aux {vals['aux']:.4f} gnorm "
+              f"{vals['grad_norm']:.3f} in {times[-1] * 1e3:.3f} ms")
+        if not all(map(math.isfinite, vals.values())):
+            raise SystemExit("train mixtral: non-finite metrics")
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"[train mixtral] step {med * 1e3:.3f} ms (median of steps 1-"
+          f"{n - 1}), {B * S / med:.1f} tok/s, peak HBM "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    params, opt = _profile_train(step, params, opt,
+                                 [to_device(data.batch(n), "cuda")],
+                                 "train mixtral")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_train_against_cpu():
+    """Phase 23c: ``loss_fn`` and every gradient leaf of one reduced config
+    a family (dense, MoE, Mamba, a mixed period, vlm, audio) on the card
+    against the same function on the CPU, same weights and batch, within
+    the CPU tests' tolerances against the compiled reference: the loss
+    within 2^-8 relative, each gradient within 2^-4 of its largest
+    value."""
+    import torch
+    from repro_torch import models
+    from repro_torch.config import ShapeConfig, get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.tree import leaves, tree_map
+    for arch in TRAIN_CHECK:
+        cfg = reduced(get_config(arch))
+        cpu = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu", host_experts=False)
+        batch = SyntheticLM(cfg, ShapeConfig("t", 80, 2, "train"),
+                            seed=0).batch(0)
+        out = {}
+        for dev, params in (("cpu", cpu),
+                            ("cuda", tree_map(lambda t: t.to("cuda"), cpu))):
+            ls = leaves(params)
+            for t in ls:
+                t.requires_grad_(True)
+            loss, parts = models.loss_fn(
+                params, {k: torch.as_tensor(v).to(dev)
+                         for k, v in batch.items()}, cfg)
+            grads = torch.autograd.grad(loss, ls, allow_unused=True,
+                                        materialize_grads=True)
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+        lerr = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        gerr = max((g.float() - w.float()).abs().max().item()
+                   / max(w.float().abs().max().item(), 1e-30)
+                   for g, w in zip(out["cuda"][1], out["cpu"][1]))
+        ok = lerr <= 2 ** -8 and gerr <= 2 ** -4
+        print(f"[train check] {arch}: loss card {out['cuda'][0]:.6f} cpu "
+              f"{out['cpu'][0]:.6f} (rel {lerr:.3g}), worst gradient leaf "
+              f"rel {gerr:.4f} over {len(out['cpu'][1])} leaves "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"train check {arch}: card and CPU disagree")
+
+
+def train_phases():
+    """Phase 23: training (23a-c) with the kernel launch counts set to 0
+    before and read after: a train-mode forward reaches no kernel."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    train_smollm()
+    train_mixtral()
+    check_train_against_cpu()
+    launches = kernels.launches()
+    print(f"[train] kernel launches {launches}")
+    if any(launches.values()):
+        raise SystemExit("train: a train phase launched a kernel")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1747,6 +1994,7 @@ def main() -> int:
                       for arch, layers, B, S, n, check in MIXED}
     vlm_launches = serve_vlm()
     encdec_launches = serve_encdec()
+    train_launches = train_phases()
     rows = []
     for k in kernels.ALL:
         name = k["name"]
@@ -1762,7 +2010,8 @@ def main() -> int:
                     **{arch: mixed_launches[arch][name]
                        for arch, *_ in MIXED},
                     VLM["arch"]: vlm_launches[name],
-                    ENCDEC["arch"]: encdec_launches[name]}
+                    ENCDEC["arch"]: encdec_launches[name],
+                    "train": train_launches[name]}
         rows.append(dict(
             name=name, route="cuda",
             source=str(Path(k["source"]).relative_to(ROOT)),

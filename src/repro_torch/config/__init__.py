@@ -1,5 +1,8 @@
-from .base import CacheConfig, ModelConfig, MoEConfig, SSMConfig, reduced
+from .base import (SHAPES, CacheConfig, ModelConfig, MoEConfig,
+                   OptimizerConfig, RuntimeConfig, ShapeConfig, SSMConfig,
+                   reduced)
 from .registry import get_config, register
 
-__all__ = ["CacheConfig", "ModelConfig", "MoEConfig", "SSMConfig", "reduced",
+__all__ = ["CacheConfig", "ModelConfig", "MoEConfig", "OptimizerConfig",
+           "RuntimeConfig", "SHAPES", "SSMConfig", "ShapeConfig", "reduced",
            "get_config", "register"]

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of the reference configuration types, cut to what the
-collaborative MoE serving path and the generic Mamba2 path read. Field
-names, defaults and :func:`reduced` follow the JAX package's
-``config/base.py`` exactly, so a config built on either side describes the
-same model.
+The port's own copy of the reference configuration types: the model,
+expert-cache, shape, optimizer and runtime configs. Field names, defaults,
+:meth:`ModelConfig.param_count` and :func:`reduced` follow the JAX
+package's ``config/base.py`` exactly, so a config built on either side
+describes the same model and counts the same parameters.
 """
 from __future__ import annotations
 
@@ -95,6 +95,54 @@ class ModelConfig:
             return -1
         return self.window_pattern[i % len(self.window_pattern)]
 
+    # Parameter counts (analytic; the trainer prints them) ----------------
+    def _attn_params(self) -> int:
+        hd = self.head_dim
+        return self.d_model * hd * (self.num_heads + 2 * self.num_kv_heads) + \
+            self.num_heads * hd * self.d_model
+
+    def _dense_ffn_params(self) -> int:
+        return 3 * self.d_model * self.d_ff
+
+    def _moe_ffn_params(self, active_only: bool = False) -> int:
+        m = self.moe
+        e = (m.top_k + m.num_shared_experts) if active_only \
+            else (m.num_experts + m.num_shared_experts)
+        return 3 * self.d_model * m.d_ff * e
+
+    def _mamba_params(self) -> int:
+        s = self.ssm
+        di = s.d_inner(self.d_model)
+        nh = s.num_heads(self.d_model)
+        # in_proj (z, x, B, C, dt) + out_proj + conv + A, D
+        return self.d_model * (2 * di + 2 * s.d_state + nh) + \
+            di * self.d_model + (di + 2 * s.d_state) * s.d_conv + 2 * nh
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic count (``ModelConfig.param_count``):
+        embeddings (twice unless tied), the front end's projection, every
+        layer's attention or Mamba block and its dense FFN or MoE (with
+        the router), and an encoder-decoder's cross-attention. Like the
+        reference's it counts no norms, biases or ``dt_bias``, and layers
+        past ``num_layers`` (the encoder's) by the decoder's pattern."""
+        total = self.vocab_size * self.d_model * \
+            (1 if self.tie_embeddings else 2)
+        if self.frontend_embed_dim:
+            total += self.frontend_embed_dim * self.d_model
+        for i in range(self.num_layers + self.encoder_layers):
+            if self.layer_kind(i) == "attn":
+                total += self._attn_params()
+            else:
+                total += self._mamba_params()
+            if self.is_moe_layer(i):
+                total += self._moe_ffn_params(active_only)
+                total += self.moe.num_experts * self.d_model  # router
+            elif self.d_ff > 0:
+                total += self._dense_ffn_params()
+        if self.encoder_layers:          # cross-attention in the decoder
+            total += self.num_layers * self._attn_params()
+        return int(total)
+
 
 @dataclass(frozen=True)
 class CacheConfig:
@@ -107,6 +155,56 @@ class CacheConfig:
     @property
     def num_slots(self) -> int:
         return self.num_indexes * self.num_ways
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """Input-shape cell: what step runs and with what geometry."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    grad_clip: float = 1.0
+    # int8 gradient compression across the (slow) pod axis
+    compress_pod_grads: bool = False
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Distributed runtime knobs (the reference's, field for field)."""
+
+    remat: bool = True
+    remat_policy: str = "dots_with_no_batch_dims"
+    donate_state: bool = True
+    # Checkpointing
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 100
+    keep_ckpts: int = 3
+    async_ckpt: bool = True
+    # Fault tolerance
+    heartbeat_interval_s: float = 10.0
+    straggler_grace_s: float = 30.0
+    elastic: bool = True
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

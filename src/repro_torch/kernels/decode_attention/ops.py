@@ -19,7 +19,9 @@ reference's (``decode_attention/ops.py``): ``pos`` is a scalar or a
 ``ValueError``.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
-a CUDA tensor it launches the kernel or raises: it never falls back. Each
+a CUDA tensor it launches the kernel or raises: it never falls back. On
+every device it refuses an input that requires grad
+(:func:`repro_torch.kernels.guard.refuse_autograd`). Each
 wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -30,6 +32,8 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.guard import refuse_autograd
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
@@ -297,6 +301,7 @@ def ptr_of(t):
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  window: int = -1) -> torch.Tensor:
     """q [B, H, hd]; k/v [B, S, Hk, hd]; pos scalar or [B] -> [B, H, hd]."""
+    refuse_autograd("flash_decode", q, k, v)
     B, H, hd = q.shape
     pos_b = pos_vector(pos, B, q.device)
     if q.device.type == "cpu":
@@ -339,6 +344,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     [0, num_pages)). Row b's query sits at its last key. The key axis
     splits as ``decode_splits`` picks for ``max_pages * page_size`` keys.
     -> [B, H, hd]."""
+    refuse_autograd("paged_flash_decode", q, k_pages, v_pages)
     B, H, hd = q.shape
     check_tables(B, page_indptr, last_page_len)
     if q.device.type == "cpu":

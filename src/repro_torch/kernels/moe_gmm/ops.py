@@ -8,7 +8,9 @@ CUDA kernels in ``csrc/moe_gmm.cu``; that file's header gives their bound
 (bytes: the weights are read once) and what the design does about it.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
-a CUDA tensor it launches the kernel or raises: it never falls back. Each
+a CUDA tensor it launches the kernel or raises: it never falls back. On
+every device it refuses an input that requires grad
+(:func:`repro_torch.kernels.guard.refuse_autograd`). Each
 wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -17,6 +19,8 @@ import ctypes
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels.guard import refuse_autograd
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 
@@ -87,6 +91,7 @@ def _raise_on(err: int, name: str) -> None:
 def swiglu_gmm(x: torch.Tensor, w1: torch.Tensor,
                w3: torch.Tensor) -> torch.Tensor:
     """Fused silu(x@w1) * (x@w3): [G, C, D] x [G, D, F] -> [G, C, F]."""
+    refuse_autograd("swiglu_gmm", x, w1, w3)
     G, C, D, F = _check(x, (w1, w3), "swiglu_gmm")
     if x.device.type == "cpu":
         return swiglu_gmm_plain(x, w1, w3)
@@ -108,6 +113,7 @@ def swiglu_gmm(x: torch.Tensor, w1: torch.Tensor,
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul x [G, C, K] @ w [G, K, N] -> [G, C, N]."""
+    refuse_autograd("gmm", x, w)
     G, C, K, N = _check(x, (w,), "gmm")
     if x.device.type == "cpu":
         return gmm_plain(x, w)

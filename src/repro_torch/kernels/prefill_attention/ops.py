@@ -19,7 +19,9 @@ port's prefill attention runs (:func:`flash_scan`, which
 a paged segment and the dense one-shot prefill agree bit for bit.
 
 The wrapper runs the plain version only for tensors that lie on the CPU.
-For a CUDA tensor it launches the kernel or raises: it never falls back.
+For a CUDA tensor it launches the kernel or raises: it never falls back. On
+every device it refuses an input that requires grad
+(:func:`repro_torch.kernels.guard.refuse_autograd`).
 It counts its launches in ``paged_flash_prefill.launches``.
 """
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.kernels.decode_attention.ops import (
     KEY_TILE, NEG_INF, SMS, check_cuda, check_tables, combine_splits,
     paged_gather, pos_vector, ptr_of, raise_on, sm_count, split_workspace,
     stream_of)
+from repro_torch.kernels.guard import refuse_autograd
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "prefill_attention.cu"
 
@@ -56,7 +59,7 @@ def _lib() -> ctypes.CDLL:
 
 # -- plain versions ------------------------------------------------------------
 
-def _mask(Sq: int, chunk: int, c_start: int, window: int, q_offset,
+def chunk_mask(Sq: int, chunk: int, c_start: int, window: int, q_offset,
           kv_last, device, causal: bool = True) -> torch.Tensor:
     """Visible keys of one chunk, [b, Sq, chunk] (b = 1 when q_offset and
     kv_last are scalars or absent). Without ``causal`` a row sees every key
@@ -77,9 +80,10 @@ def _mask(Sq: int, chunk: int, c_start: int, window: int, q_offset,
 def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int = -1, q_offset=0,
                kv_last: Optional[torch.Tensor] = None,
-               chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+               chunk: int = 1024, causal: bool = True,
+               with_lse: bool = False):
     """Online-softmax attention over key chunks (the reference's
-    ``models/attention.py::_flash_fwd_scan``, forward only): fp32 scores of
+    ``models/attention.py::_flash_fwd_scan``): fp32 scores of
     the hd^-0.5-scaled q, a running (m, l, acc) per query row, one rounding
     at the end. q [B, Sq, H, hd], query row i at position q_offset + i
     (q_offset scalar or [B]); k/v [B, Sk, Hk, hd]; kv_last [B] (optional):
@@ -87,7 +91,9 @@ def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     encoder's self-attention, cross-attention) lets every row see every
     key the window and kv_last leave. Past ``chunk`` keys, the keys come in
     whole chunks, as the reference asserts. Returns [B, Sq, H, hd] in q's
-    dtype."""
+    dtype; ``with_lse`` also the rows' fp32 log-sum-exp [B, Sq, H], which
+    the flash backward (:class:`repro_torch.models.attention.FlashAttention`)
+    recomputes the probabilities from."""
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     group = H // Hk
@@ -102,7 +108,7 @@ def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         krep = k[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
         vrep = v[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
         s = torch.einsum("bqhd,bkhd->bqhk", qf, krep)
-        mask = _mask(Sq, chunk, c0, window, q_offset, kv_last, q.device,
+        mask = chunk_mask(Sq, chunk, c0, window, q_offset, kv_last, q.device,
                      causal)
         s = torch.where(mask[:, :, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -113,7 +119,8 @@ def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     vrep)
         m = m_new
     l = torch.clamp(l, min=1e-30)
-    return (acc / l[..., None]).to(q.dtype)
+    out = (acc / l[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if with_lse else out
 
 
 def paged_flash_prefill_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -214,6 +221,7 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     page_indptr [B+1] / page_indices / last_page_len [B]: CSR page tables
     (every row >= 1 page, at most ``max_pages``; ``last_page_len`` may be
     <= 0 as long as each query row sees a key). -> [B, C, H, hd]."""
+    refuse_autograd("paged_flash_prefill", q, k_pages, v_pages)
     B, C, H, hd = q.shape
     pos0 = pos_vector(pos0, B, q.device, "pos0")
     check_tables(B, page_indptr, last_page_len)

@@ -19,7 +19,9 @@ on bf16 tensor cores, an fp32 operand split into bf16 hi + lo.
 same split, for the tests: no path calls it.
 
 The wrapper runs the plain version only for tensors that lie on the CPU.
-For a CUDA tensor it launches the kernels or raises: it never falls back.
+For a CUDA tensor it launches the kernels or raises: it never falls back. On
+every device it refuses an input that requires grad
+(:func:`repro_torch.kernels.guard.refuse_autograd`).
 It counts one launch per call in ``ssd_scan.launches``, however many CUDA
 kernels the call runs (three), and allocates y, h and one fp32 workspace
 for the chunk states and decays.
@@ -32,6 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.guard import refuse_autograd
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
@@ -183,6 +187,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     """x [B, S, nh, hp] bf16; dt [B, S, nh] fp32; A_log [nh] fp32;
     Bm/Cm [B, S, ds] bf16; h0 [B, nh, ds, hp] fp32 or None
     -> (y [B, S, nh, hp] bf16, h [B, nh, ds, hp] fp32)."""
+    refuse_autograd("ssd_scan", x, dt, A_log, Bm, Cm, h0)
     Bb, S, nh, hp = x.shape
     ds = Bm.shape[-1]
     if tuple(dt.shape) != (Bb, S, nh) or tuple(A_log.shape) != (nh,) \

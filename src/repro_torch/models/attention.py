@@ -3,15 +3,19 @@ cached decode, over a dense cache or the paged KV pool, and the
 encoder-decoder's cross-attention (counterpart of the reference's
 ``models/attention.py``).
 
-Prefill and dense segments are plain tensor code, as they are XLA in the
-reference: matmul/einsum and softmax in fp32, never a fused attention
-operator. Decode is scored by the flash-decode kernels (dense and paged;
-a decode step's cross-attention too) and a paged segment by the
-paged-prefill kernel (:mod:`repro_torch.kernels`); on the CPU each wrapper
-runs its plain version. Under ``cfg.mrope`` q and k turn by multimodal
-RoPE, positions ``[3, B, S]``. Layouts follow the reference: q
-[B, S, H, hd], k/v [B, S, Hk, hd], pool [num_pages, page_size, Hk, hd],
-GQA group = H // Hk.
+Prefill, train and dense segments are plain tensor code, as they are XLA
+in the reference: matmul/einsum and softmax in fp32, never a fused
+attention operator. Full-sequence attention (prefill, train, the
+encoder's and a prompt's cross-attention) is :func:`flash_attention`, the
+reference's custom-VJP flash scan as a ``torch.autograd.Function``: its
+backward recomputes each chunk's scores from the saved log-sum-exp, so no
+[Sq, Sk] matrix is ever kept for the gradient. Decode is scored by the
+flash-decode kernels (dense and paged; a decode step's cross-attention
+too) and a paged segment by the paged-prefill kernel
+(:mod:`repro_torch.kernels`); on the CPU each wrapper runs its plain
+version. Under ``cfg.mrope`` q and k turn by multimodal RoPE, positions
+``[3, B, S]``. Layouts follow the reference: q [B, S, H, hd], k/v
+[B, S, Hk, hd], pool [num_pages, page_size, Hk, hd], GQA group = H // Hk.
 Unlike the reference, caches and pools are written in place.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   paged_flash_decode)
 from repro_torch.kernels.prefill_attention import (flash_scan,
                                                    paged_flash_prefill)
+from repro_torch.kernels.prefill_attention.ops import NEG_INF, chunk_mask
 from .layers import apply_mrope, apply_rope, mm
 
 Params = Dict[str, torch.Tensor]
@@ -75,13 +80,74 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_scan(q, k, v, window, q_offset, None, chunk, causal)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP
+    (``models/attention.py:95-206``). Forward: the flash scan
+    (:func:`flash_scan`), saving (q, k, v, out, lse). Backward
+    (``_flash_bwd``): per key chunk, the fp32 scores again, ``p = exp(s -
+    lse)``, ``delta = rowsum(dO * O)``, ``ds = p * (dp - delta)``; dq
+    accumulates over chunks in fp32, and each chunk's dk / dv sum the GQA
+    group's query heads back onto their kv head. Gradients round once to
+    the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool, chunk: int):
+        out, lse = flash_scan(q, k, v, window, 0, None, chunk, causal,
+                              with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.causal, ctx.chunk = window, causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, Sq, H, hd = q.shape
+        Sk, Hk = k.shape[1], k.shape[2]
+        group = H // Hk
+        chunk = min(ctx.chunk, Sk)
+        scale = hd ** -0.5
+        qf = q.float() * scale
+        do = dout.float()
+        delta = (do * out.float()).sum(dim=-1)               # [B, Sq, H]
+        dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32,
+                         device=q.device)
+        dks, dvs = [], []
+        for c0 in range(0, Sk, chunk):
+            krep = k[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
+            vrep = v[:, c0:c0 + chunk].repeat_interleave(group, dim=2).float()
+            s = torch.einsum("bqhd,bkhd->bqhk", qf, krep)
+            mask = chunk_mask(Sq, chunk, c0, ctx.window, 0, None, q.device,
+                         ctx.causal)
+            s = torch.where(mask[:, :, None, :], s, NEG_INF)
+            p = torch.exp(s - lse[..., None])                  # [B,Sq,H,ck]
+            dv_rep = torch.einsum("bqhk,bqhd->bkhd", p, do)
+            dp = torch.einsum("bqhd,bkhd->bqhk", do, vrep)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bqhk,bkhd->bqhd", ds, krep) * scale
+            dk_rep = torch.einsum("bqhk,bqhd->bkhd", ds, qf)
+            dks.append(dk_rep.reshape(B, chunk, Hk, group, hd).sum(dim=3))
+            dvs.append(dv_rep.reshape(B, chunk, Hk, group, hd).sum(dim=3))
+        return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+                torch.cat(dvs, dim=1).to(v.dtype), None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = -1, causal: bool = True,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention of q [B, Sq, H, hd] over k/v
+    [B, Sk, Hk, hd], query row i at position i, differentiable through
+    :class:`FlashAttention`. Returns [B, Sq, H, hd] in q's dtype."""
+    return FlashAttention.apply(q, k, v, int(window), bool(causal),
+                                int(chunk))
+
+
 def prefill_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
                       cfg, window: int = -1, causal: bool = True):
-    """Full-sequence self attention (prefill; an encoder's with
+    """Full-sequence self attention (prefill and train; an encoder's with
     ``causal=False``), projecting once: returns (output [B, S, D], roped k,
-    v [B, S, Hk, hd]) so the caller keeps the same K/V for the cache."""
+    v [B, S, Hk, hd]) so a prefill keeps the same K/V for the cache."""
     q, k, v = _qkv(p, x, positions, cfg)
-    o = flash_forward(q, k, v, window=window, causal=causal)
+    o = flash_attention(q, k, v, window=window, causal=causal)
     return _out(p, o, cfg), k, v
 
 
@@ -297,7 +363,8 @@ def cross_attention(p: Params, x: torch.Tensor,
     run the flash scan with ``causal=False``; one query row (a decode step)
     is scored by the flash-decode kernel with its query at the last memory
     key, Sm - 1, so every key is visible: the reference's unmasked scan
-    for that row. Returns [B, Sq, D]."""
+    for that row. Returns [B, Sq, D]. A prompt's (and train's) rows go
+    through :func:`flash_attention`, so the memory K/V take gradients."""
     B, Sq, _ = x.shape
     k, v = memory_kv["k"], memory_kv["v"]
     hd = k.shape[3]
@@ -308,5 +375,5 @@ def cross_attention(p: Params, x: torch.Tensor,
                           device=x.device)
         o = flash_decode(q[:, 0].contiguous(), k, v, last)[:, None]
     else:
-        o = flash_forward(q, k, v, causal=False)
+        o = flash_attention(q, k, v, causal=False)
     return mm(o.reshape(B, Sq, H * hd), p["wo"])

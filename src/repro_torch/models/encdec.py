@@ -17,18 +17,22 @@ prefill's ``kv`` holds the prompt's S slots, as the reference's does: a
 decode step past them writes slot S-1 again
 (:func:`repro_torch.models.model.prefill` takes ``capacity=`` to widen
 it). A decode step scores both attentions with the flash-decode kernel.
+Train mode (:func:`encode` and :func:`decode_stack` with ``"train"``)
+runs the flash scan with its VJP and checkpoints each layer with
+``remat``, as the reference's ``jax.checkpoint`` around its scan bodies.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from . import attention as attn
 from .layers import (dense_init, embed_lookup, ffn_apply, frontend_project,
                      logits_from_embed, rmsnorm)
-from .transformer import attn_params, ffn_params, layer_params
+from .transformer import attn_params, ffn_params, layer_params, unstack
 
 Params = Dict[str, Any]
 
@@ -69,27 +73,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "final_norm": torch.ones(D, device=dev)}
 
 
-def encode(params: Params, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _enc_layer(lp: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    o, _, _ = attn.prefill_attention(lp["attn"], h, positions, cfg,
+                                     causal=False)
+    x = x + o
+    return x + ffn_apply(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+           remat: bool = False) -> torch.Tensor:
     """frames [B, S_enc, F] -> encoder memory [B, S_enc, D]: the front
     end's projection rounded to bf16, then each layer's roped
-    bidirectional self-attention and FFN, then ``enc_norm``."""
+    bidirectional self-attention and FFN, then ``enc_norm``. ``remat``
+    (training) checkpoints each layer."""
     x = frontend_project(frames, params["frontend_proj"])
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    for l in range(cfg.encoder_layers):
-        lp = layer_params(params["enc"], l)
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        o, _, _ = attn.prefill_attention(lp["attn"], h, positions, cfg,
-                                         causal=False)
-        x = x + o
-        x = x + ffn_apply(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    for lp in unstack(params["enc"], cfg.encoder_layers):
+        if remat:
+            x = checkpoint(_enc_layer, lp, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _enc_layer(lp, x, positions, cfg)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _dec_layer(lp: Params, x: torch.Tensor, positions, cfg: ModelConfig,
                mode: str, st: Optional[Params], pos, mem_kv: Params):
-    """One decoder layer. Prefill returns the layer's roped self-attention
-    K/V; decode writes the new token's into ``st`` in place (None)."""
+    """One decoder layer. Prefill (and train) returns the layer's roped
+    self-attention K/V; decode writes the new token's into ``st`` in
+    place (None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     new = None
     if mode == "decode":
@@ -104,10 +118,16 @@ def _dec_layer(lp: Params, x: torch.Tensor, positions, cfg: ModelConfig,
     return x, new
 
 
+def _train_dec_layer(lp: Params, x: torch.Tensor, positions,
+                     cfg: ModelConfig, mem_kv: Params) -> torch.Tensor:
+    return _dec_layer(lp, x, positions, cfg, "train", None, None, mem_kv)[0]
+
+
 def decode_stack(params: Params, tokens: torch.Tensor,
                  memory: Optional[torch.Tensor], cfg: ModelConfig,
-                 mode: str, state: Optional[Params] = None
-                 ) -> Tuple[torch.Tensor, Params]:
+                 mode: str, state: Optional[Params] = None,
+                 remat: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The decoder over its self-attention and the encoder memory.
 
     Prefill: tokens [B, S] and ``memory`` [B, S_enc, D]; every layer's
@@ -115,13 +135,29 @@ def decode_stack(params: Params, tokens: torch.Tensor,
     the prompt's self-attention K/V, pos = S. Decode: tokens [B, 1] at
     ``state["pos"]``; the state's ``memory_kv`` is reused and each layer's
     new K/V lands IN PLACE in slot ``min(pos, S-1)`` of ``state["kv"]``.
+    Train: as prefill, the cross K/V projected from ``memory`` inside the
+    graph (outside the checkpoints, as the reference's), each layer
+    checkpointed with ``remat``, and no state (None).
     Returns (hidden [B, S, D] after ``final_norm``, new state)."""
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "train"):
         raise NotImplementedError(f"encoder-decoder mode {mode!r} is not "
                                   f"ported")
     x = embed_lookup(params["embed"], tokens).to(torch.bfloat16)
     S = tokens.shape[1]
     L = cfg.num_layers
+    if mode == "train":
+        positions = torch.arange(S, device=x.device)[None]
+        layers = unstack(params["dec"], L)
+        mem_kvs = [attn.encode_memory_kv(lp["cross"], memory,
+                                         cfg.num_kv_heads, cfg.head_dim)
+                   for lp in layers]
+        for lp, mkv in zip(layers, mem_kvs):
+            if remat:
+                x = checkpoint(_train_dec_layer, lp, x, positions, cfg, mkv,
+                               use_reentrant=False)
+            else:
+                x = _train_dec_layer(lp, x, positions, cfg, mkv)
+        return rmsnorm(params["final_norm"], x, cfg.norm_eps), None
     if mode == "decode":
         pos = torch.as_tensor(state["pos"], device=x.device)
         positions = None

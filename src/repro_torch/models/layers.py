@@ -30,14 +30,33 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+class _Silu(torch.autograd.Function):
+    """x * logistic(x). Forward: the reference's rounding points (in bf16
+    it rounds after each step of 1 / (1 + exp(-x)) and after the
+    product, XLA's expansion of the bf16 ``logistic``). Backward: JAX's
+    rule, ``g * s + (g * x) * (s * (1 - s))`` from the rounded s, each
+    product rounding to x's dtype. Differentiating the forward's steps
+    instead would meet exp(-x) = inf below x = -88 and give 0 * inf =
+    NaN, where the reference's gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        def r(t):
+            return t.to(x.dtype)
+        sig = r(1.0 / r(1.0 + r(torch.exp(-x.float())).float()).float())
+        ctx.save_for_backward(x, sig)
+        return x * sig
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sig = ctx.saved_tensors
+        return g * sig + (g * x) * (sig * (1 - sig))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * logistic(x) with the reference's rounding points: in bf16 the
-    reference rounds after each step of 1 / (1 + exp(-x)) and after the
-    product (XLA's expansion of the bf16 ``logistic``)."""
-    def r(t):
-        return t.to(x.dtype)
-    sig = r(1.0 / r(1.0 + r(torch.exp(-x.float())).float()).float())
-    return x * sig
+    """x * logistic(x) with the reference's rounding points and gradient
+    (:class:`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:

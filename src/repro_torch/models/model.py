@@ -1,6 +1,7 @@
-"""Model API of the generic serve path: init, prefill and decode step
-(counterpart of the reference's ``models/model.py``, serving entry points).
+"""Model API: init, the training loss, prefill and decode step
+(counterpart of the reference's ``models/model.py``).
 
+    loss, {"xent", "aux"} = loss_fn(params, batch, cfg)
     logits, state = prefill(params, {"tokens": tokens}, cfg)
     logits, state = decode_step(params, state, {"tokens": next_tok}, cfg)
 
@@ -15,31 +16,88 @@ stack with its audio front end (seamless-m4t,
 stack is the collaborative engine's (:mod:`repro_torch.serving.engine`).
 
 Batch layout: ``tokens`` [B, S] (the decoder's, encoder-decoder); at
-prefill only, the audio family's ``frames`` [B, S_enc, F], the vlm
-family's ``patches`` [B, P, F] (the stub front ends' embeddings) and
-``positions`` [3, B, S] (M-RoPE; text positions when absent).
+prefill and in training, the audio family's ``frames`` [B, S_enc, F], the
+vlm family's ``patches`` [B, P, F] (the stub front ends' embeddings) and
+``positions`` [3, B, S] (M-RoPE; text positions when absent); in training
+``labels`` [B, S].
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from . import encdec, transformer
 
-__all__ = ["decode_step", "init_params", "init_state", "prefill"]
+__all__ = ["decode_step", "init_params", "init_state", "loss_fn", "prefill"]
 
 Params = Dict[str, Any]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Params:
+                device="cuda", host_experts: Optional[bool] = None
+                ) -> Params:
     """Seeded random parameters with the reference's tree
-    (:func:`encdec.init_params` or :func:`transformer.init_params`)."""
+    (:func:`encdec.init_params` or :func:`transformer.init_params`;
+    ``host_experts=False`` keeps the engine stack's expert tables on
+    ``device``, for training)."""
     if cfg.is_encdec:
         return encdec.init_params(cfg, generator, device)
-    return transformer.init_params(cfg, generator, device)
+    return transformer.init_params(cfg, generator, device, host_experts)
+
+
+# -- the loss (chunked over the sequence to bound the logits) ----------------
+
+def _xent_chunked(params: Params, x: torch.Tensor, labels: torch.Tensor,
+                  cfg: ModelConfig, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross entropy, the logits ``chunk`` positions at a
+    time, each chunk checkpointed (the reference's ``_xent_chunked``):
+    fp32 logits, log-sum-exp minus the target logit taken by a masked
+    reduction over the vocabulary, summed chunk by chunk in fp32. As the
+    reference's, it counts only the first ``S // chunk * chunk``
+    positions: past ``chunk`` tokens, the tail of a sequence that is no
+    whole number of chunks drops out."""
+    B, S, D = x.shape
+    lm = encdec.lm_logits if cfg.is_encdec else transformer.lm_logits
+    chunk = min(chunk, S)
+    n = S // chunk
+
+    def body(xb, yb):
+        lg = lm(params, xb, cfg).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        iota = torch.arange(lg.shape[-1], device=lg.device)
+        tgt = torch.where(iota == yb[..., None], lg, 0.0).sum(dim=-1)
+        return (lse - tgt).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        tot = tot + checkpoint(body, x[:, sl], labels[:, sl],
+                               use_reentrant=False)
+    return tot / (B * n * chunk)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of every stack (the reference's ``loss_fn``):
+    ``xent + aux_loss_coef * aux``, with {"xent", "aux"}; aux is the
+    MoE layers' summed load-balance loss (0 without MoE, and for the
+    encoder-decoder). Differentiable end to end; it reaches no kernel."""
+    if cfg.is_encdec:
+        memory = encdec.encode(params, batch["frames"], cfg, remat)
+        x, _ = encdec.decode_stack(params, batch["tokens"], memory, cfg,
+                                   "train", remat=remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, _, aux = transformer.backbone(
+            params, batch["tokens"], cfg, "train",
+            patches=batch.get("patches"), positions=batch.get("positions"),
+            remat=remat)
+    xent = _xent_chunked(params, x, batch["labels"], cfg)
+    coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+    return xent + coef * aux, {"xent": xent, "aux": aux}
 
 
 def init_state(cfg: ModelConfig, batch: int, capacity: int,

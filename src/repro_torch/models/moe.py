@@ -1,13 +1,16 @@
-"""Top-k MoE FFN with sort-based capacity dispatch, serve mode
-(counterpart of the reference's ``models/moe.py``).
+"""Top-k MoE FFN with sort-based capacity dispatch (counterpart of the
+reference's ``models/moe.py``).
 
 This is the dense-framework path over the full expert table: the
-engine's prefill forward, and every forward of the generic path's MoE
-layers (jamba, llama4); the engine's decode step runs the two-tier
+engine's prefill forward, every forward of the generic path's MoE layers
+(jamba, llama4) and every train-mode forward (:func:`moe_train`, with
+the Switch load-balance loss); the engine's decode step runs the two-tier
 execution of :mod:`repro_torch.core.collaborative`. The expert products
 here are plain large matrix products (the reference leaves them to XLA
-einsums). A layer with shared experts (``p["shared"]``, a dense SwiGLU FFN
-of ``num_shared_experts`` x d_ff) adds their output to the routed one.
+einsums), differentiable through the dispatch's gathers and scatters and
+the combine weights, so the router trains. A layer with shared experts
+(``p["shared"]``, a dense SwiGLU FFN of ``num_shared_experts`` x d_ff)
+adds their output to the routed one.
 """
 from __future__ import annotations
 
@@ -29,6 +32,18 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int
     top_w, top_i = torch.topk(probs, top_k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_i.to(torch.int32), top_w
+
+
+def load_balance_loss(probs: torch.Tensor, top_i: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch aux loss: E * sum_e f_e * P_e (fp32 scalar), f the share of
+    assignments an expert takes, P its mean router probability."""
+    f = torch.zeros(num_experts, dtype=torch.float32,
+                    device=probs.device).index_add_(
+        0, top_i.reshape(-1).long(),
+        torch.ones(top_i.numel(), dtype=torch.float32, device=probs.device))
+    f = f / torch.clamp(f.sum(), min=1.0)
+    return num_experts * torch.sum(f * probs.mean(dim=0))
 
 
 def sort_dispatch(top_i: torch.Tensor, capacity: int, num_experts: int):
@@ -120,3 +135,35 @@ def moe_apply(p: Params, x: torch.Tensor, m: MoEConfig,
     if "shared" in p:
         y = y + ffn_apply(p["shared"], xf)
     return y.reshape(B, S, D)
+
+
+def moe_train(p: Params, x: torch.Tensor, m: MoEConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train mode: x [B, S, D] -> (y [B, S, D], the load-balance loss),
+    with the train capacity factor (``m.capacity_factor``: tokens past an
+    expert's capacity drop), as the reference's ``moe_apply`` with
+    ``capacity_factor=None``. S > 1 dispatches per example and runs the
+    expert products of all B examples as one [E, B*C, D] product, as the
+    reference's ``becd,edf`` einsum does, so each expert's weight
+    gradient sums the whole batch in one product and rounds once."""
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    xf = x.reshape(B * S, D)
+    probs, top_i, top_w = route(p["router"], xf, K)
+    aux = load_balance_loss(probs, top_i, E)
+    if S == 1:
+        y = _moe_one_group(p, xf, top_i, top_w, m, m.capacity_factor)
+    else:
+        C = max(int(S * K / E * m.capacity_factor), 1)
+        C = (C + 7) // 8 * 8
+        ti, tw = top_i.reshape(B, S, K), top_w.reshape(B, S, K)
+        ds = [_dispatch(x[b], ti[b], C, E) for b in range(B)]
+        buf = torch.stack([d[0] for d in ds], dim=1).reshape(E, B * C, D)
+        w1, w3, w2 = _experts(p, x.device)
+        h = silu(mm(buf, w1)) * mm(buf, w3)
+        out = mm(h, w2).reshape(E, B, C, D)
+        y = torch.cat([_combine(out[:, b], *ds[b][1:], tw[b], S, E, C,
+                                x.dtype) for b in range(B)])
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], xf)
+    return y.reshape(B, S, D), aux

@@ -6,8 +6,11 @@ The chunked dual form of arXiv:2405.21060 §6: an intra-chunk quadratic
 states, for prefill; ``ssd_decode_step`` is the O(1) recurrent form of a
 decode step. The prefill scan is the ``ssd_scan`` kernel
 (:mod:`repro_torch.kernels.ssd_scan`): its plain version on the CPU, the
-hand-written CUDA kernel on a GPU. The decode recurrence and the causal
-conv are plain PyTorch, as they are plain JAX in the reference.
+hand-written CUDA kernel on a GPU. Train mode runs the kernel's plain
+version, ``ssd_scan_plain`` (the reference's ``ssd_chunked``, one chunk at
+a time in fp32), on every device: it is differentiable, the kernel is not.
+The decode recurrence and the causal conv are plain PyTorch, as they are
+plain JAX in the reference.
 
 Layouts and rounding points are the reference's: ``in_proj`` through
 :func:`layers.mm`; ``dt = softplus(dt + dt_bias)`` in fp32; the conv as
@@ -25,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig, SSMConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from .layers import dense_init, mm, rmsnorm, silu
 
 Params = Dict[str, torch.Tensor]
@@ -119,9 +122,12 @@ def init_ssm_state(cfg: ModelConfig, batch: int, device=None) -> Params:
 
 
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Params] = None, decode: bool = False
+                state: Optional[Params] = None, decode: bool = False,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Full Mamba2 block. x: [B, S, D] -> (y [B, S, D], new state)."""
+    """Full Mamba2 block. x: [B, S, D] -> (y [B, S, D], new state).
+    ``train`` (no state) scans through the differentiable plain scan in
+    place of the kernel and returns no state."""
     s = cfg.ssm
     D = cfg.d_model
     di = s.d_inner(D)
@@ -146,6 +152,9 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y, new_ssd = ssd_decode_step(xh[:, 0], dt[:, 0], p["A_log"],
                                      Bmat[:, 0], Cmat[:, 0], state["ssd"])
         y = y[:, None]
+    elif train:
+        y, new_ssd = ssd_scan_plain(xh, dt, p["A_log"], Bmat, Cmat,
+                                    chunk=s.chunk_size)
     else:
         init = None if state is None else state["ssd"]
         y, new_ssd = ssd_chunked(xh, dt, p["A_log"], Bmat, Cmat, init,

@@ -28,10 +28,11 @@ the generic path, which has no tier to page experts through, so its
 tables live on the compute device with every other leaf, as the
 reference's generic path holds them.
 
-``backbone`` runs any stack in prefill and decode mode, and the attention
-stacks in segment mode (the engine's MoE stack with the routing trace the
-cache-warming replay consumes); the homogeneous MoE stack's decode step is
-the engine's (:mod:`repro_torch.serving.engine`).
+``backbone`` runs any stack in prefill, decode and train mode, and the
+attention stacks in segment mode (the engine's MoE stack with the routing
+trace the cache-warming replay consumes); the homogeneous MoE stack's
+decode step is the engine's (:mod:`repro_torch.serving.engine`). Train
+mode reaches no kernel: it picks the differentiable functions by mode.
 """
 from __future__ import annotations
 
@@ -40,13 +41,14 @@ import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from . import attention as attn
 from . import ssm
 from .layers import (dense_init, embed_lookup, ffn_apply, frontend_project,
                      logits_from_embed, rmsnorm)
-from .moe import moe_apply, route
+from .moe import moe_apply, moe_train, route
 
 Params = Dict[str, Any]
 
@@ -127,6 +129,18 @@ def _at(tree: Params, g: Optional[int]) -> Params:
     return tree if g is None else layer_params(tree, g)
 
 
+def unstack(tree: Params, n: int) -> List[Params]:
+    """The n layers of a tree stacked on a leading [n] axis, as n trees of
+    views (``torch.unbind``: one backward node a leaf, which stacks the n
+    layers' gradients once)."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 # -- parameters --------------------------------------------------------------
 
 def stacked_init(shape, n: int, g: torch.Generator, dev,
@@ -203,7 +217,8 @@ def _slot_params(cfg: ModelConfig, slot: Slot, n: int, g: torch.Generator,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Params:
+                device="cuda", host_experts: Optional[bool] = None
+                ) -> Params:
     """Seeded random parameters with the reference's tree, shapes and
     scales (``models/layers.py::_dense_init``: normal / sqrt(fan_in),
     fan_in the leading axis of each unstacked leaf; the expert tables'
@@ -211,14 +226,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     A front end adds ``frontend_proj`` [frontend_embed_dim, D].
     ``generator`` must live on ``device``. The homogeneous MoE stack's
     expert tables are the engine's host tier (host memory, pinned on a
-    GPU); every other leaf, and every other stack's tables, live on
-    ``device``."""
+    GPU) unless ``host_experts`` is False (training: every leaf on the
+    device); every other leaf, and every other stack's tables, live on
+    ``device``. Where they land moves no draw."""
     kind = _decoder_only(cfg)
     dev = torch.device(device)
     D = cfg.d_model
     g = generator
     slots, G, R = build_slots(cfg)
-    host = kind == "moe"
+    host = kind == "moe" if host_experts is None else host_experts
 
     def embed():
         w = torch.randn((cfg.vocab_size, D), generator=g, device=dev)
@@ -359,6 +375,74 @@ def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
     return x, new, trace
 
 
+def _train_layer(lp: Params, x: torch.Tensor, aux: torch.Tensor,
+                 slot: Slot, cfg: ModelConfig, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer in train mode (the reference's ``_apply_layer`` with
+    ``mode="train"``): differentiable functions only, chosen here by
+    mode. Attention runs the flash scan with its VJP, Mamba the plain
+    chunked scan, the MoE :func:`moe_train`, whose load-balance loss adds
+    to ``aux``. Returns (x, aux)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if slot.kind == "attn":
+        o, _, _ = attn.prefill_attention(lp["attn"], h, positions, cfg,
+                                         slot.window)
+    else:
+        o, _ = ssm.mamba_apply(lp["mamba"], h, cfg, train=True)
+    x = x + o
+    if _slot_has_ffn(cfg, slot):
+        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if slot.is_moe:
+            f, a = moe_train(lp["moe"], h2, cfg.moe)
+            aux = aux + a
+        else:
+            f = ffn_apply(lp["ffn"], h2)
+        x = x + f
+    return x, aux
+
+
+def _train_backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                    patches: Optional[torch.Tensor],
+                    positions: Optional[torch.Tensor], remat: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train mode of :func:`backbone`: (hidden after the final norm, the
+    sum of the layers' load-balance losses, fp32). With ``remat`` each
+    layer group runs under ``torch.utils.checkpoint`` (non-reentrant), as
+    the reference's ``jax.checkpoint`` around its scan body, and, when
+    the period has more than one slot, each layer inside it again (the
+    reference's nested remat: the group's backward then keeps one layer's
+    internals at a time, not the whole period's). Remainder layers run
+    without, as the reference's."""
+    x = _embed_inputs(params, tokens, cfg, patches)
+    B, S = tokens.shape
+    positions = _positions(positions, cfg, S, B, x.device)
+    slots, G, R = build_slots(cfg)
+    nested = remat and len(slots) > 1
+
+    def group(x, aux, lps):
+        for slot, lp in zip(slots, lps):
+            if nested:
+                x, aux = checkpoint(_train_layer, lp, x, aux, slot, cfg,
+                                    positions, use_reentrant=False)
+            else:
+                x, aux = _train_layer(lp, x, aux, slot, cfg, positions)
+        return x, aux
+
+    per_slot = [unstack(params["scan"][f"s{j}"], G)
+                for j in range(len(slots))]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        lps = [layers[g] for layers in per_slot]
+        if remat:
+            x, aux = checkpoint(group, x, aux, lps, use_reentrant=False)
+        else:
+            x, aux = group(x, aux, lps)
+    for j in range(R):
+        x, aux = _train_layer(params["rem"][f"r{j}"], x, aux,
+                              slots[j % len(slots)], cfg, positions)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
 def _positions(given: Optional[torch.Tensor], cfg: ModelConfig, S: int,
                B: int, device, start: int = 0) -> torch.Tensor:
     """Rotary positions of S tokens from ``start``: [1, S], or under M-RoPE
@@ -398,9 +482,15 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              pages: Optional[torch.Tensor] = None,
              kv_write_min=None, kv_write_max=None,
              patches: Optional[torch.Tensor] = None,
-             positions: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Params, Optional[Params]]:
+             positions: Optional[torch.Tensor] = None,
+             remat: bool = True):
     """Embedding + all layers in order + final norm.
+
+    Train (every stack): tokens [B, S], with the vlm family's ``patches``
+    and ``positions`` as at prefill; returns (hidden [B, S, D], None,
+    aux): no state, and the sum of the MoE layers' load-balance losses
+    (fp32, 0 without MoE) in the last place. ``remat`` checkpoints each
+    layer group (:func:`_train_backbone`); the other modes ignore it.
 
     Prefill: tokens [B, S]; returns (hidden [B, S, D], decode state with
     the prompt's KV and every Mamba layer's state, pos = S, trace). Each
@@ -432,6 +522,10 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``top_i``/``top_w`` [G, B, S, K] and ``h2`` [G, B, S, D] (remainder
     MoE layers under ``trace["rem"]`` without the [G] axis)."""
     kind = _decoder_only(cfg)
+    if mode == "train":
+        x, aux = _train_backbone(params, tokens, cfg, patches, positions,
+                                 remat)
+        return x, None, aux
     if mode not in ("prefill", "segment", "decode"):
         raise NotImplementedError(f"backbone mode {mode!r} is not ported")
     if mode == "decode" and kind == "moe":

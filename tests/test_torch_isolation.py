@@ -34,7 +34,10 @@ def test_port_has_sources():
                  "kernels/decode_attention/ops.py",
                  "kernels/prefill_attention/ops.py", "kernels/cases.py",
                  "serving/kv_pool.py", "models/ssm.py", "models/model.py",
-                 "kernels/ssd_scan/ops.py"):
+                 "kernels/ssd_scan/ops.py", "launch/train.py",
+                 "optim/adamw.py", "optim/train_step.py", "data/pipeline.py",
+                 "checkpoint/ckpt.py", "runtime/fault_tolerance.py",
+                 "runtime/elastic.py"):
         assert must in names
 
 
@@ -49,7 +52,7 @@ def test_source_imports_neither_jax_nor_repro(path):
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.kernels, repro_torch.bridge, "
-            "repro_torch.serving.kv_pool\n"
+            "repro_torch.serving.kv_pool, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
