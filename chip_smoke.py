@@ -49,6 +49,21 @@ Phases, in order; any failure exits non-zero:
      (kernel) against the dense segment (plain flash scan);
  11. where a paged decode step's time goes;
  12. where a segment-streamed prefill's time goes;
+ 12b. the static-batch path and the paper's tooling on phase 4's weights
+     and pinned host tier (``build(params=...)``): ``generate`` of 4
+     prompts of 32 tokens, 16 greedy tokens, through three engines (a full
+     cache, N = 4, M = 8: all 32 experts in HBM; phase 4's N = 2, M = 2;
+     N = 1, M = 1) whose tokens must be bitwise equal, with the stats
+     identities, ms a decode step, tok/s and hit rates; each prompt's
+     first token through ``prefill_request`` with and without warming;
+     the sequential oracle ``collaborative_moe_reference`` against probe
+     -> execute -> commit on a cached and an uncached layer; a router
+     trace captured over 256 teacher-forced tokens, replayed through the
+     torch cache and ``NumpyCache`` (equal hits), and the simulator on it
+     and on a synthetic 32-layer trace (the paper testbed's cost model,
+     not this card); a reduced smollm train step under the host mesh,
+     bitwise equal to the step without one. Only ``swiglu_gmm``, ``gmm``
+     and ``flash_decode`` may launch in ``generate``;
  13. phi35-moe (16 experts top-2, d_ff 6400) and qwen3-moe-30b-a3b (128
      experts top-8, d_model 2048, d_ff 768) on the collaborative engine at
      their published widths, 4 layers each (host tiers of 10.1 and 4.8
@@ -121,9 +136,9 @@ Phases, in order; any failure exits non-zero:
      profiler); (c) ``loss_fn`` and every gradient of one reduced
      config a family (dense, MoE, Mamba, gemma3's mixed period, vlm,
      audio) on the card against the CPU, same weights and batch;
- 24. the ``kernels`` line (launch counts from the serve and train phases,
-     by phase and summed; times at the served, long and other models'
-     shapes) and the result line.
+ 24. the ``kernels`` line (launch counts from the serve, static-batch
+     (``static``) and train phases, by phase and summed; times at the
+     served, long and other models' shapes) and the result line.
 Prints nothing of the result when no GPU is present.
 """
 from __future__ import annotations
@@ -144,6 +159,14 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                         # dense bf16 tensor-core peak
 LAYERS = 4
 SERVE = dict(requests=6, prompt=(16, 32), new_tokens=16, slots=4)
+# phase 12b: the static batch on phase 4's weights: (batch, prompt, greedy
+# tokens), the three cache geometries (label, N, M, prefill_chunk: the full
+# cache, all 32 experts in HBM; phase 4's; the smallest), and the
+# teacher-forced tokens of the captured router trace
+STATIC = dict(batch=4, prompt=32, steps=16,
+              caches=(("full", 4, 8, 0), ("phase 4", 2, 2, 8),
+                      ("minimal", 1, 1, 8)),
+              trace_tokens=256)
 # phase 7: prefetch, then prefetch and the CPU miss lane (the paper's full
 # configuration: 8 host threads, small-group fusion up to 4 tokens)
 HOST = dict(host_threads=8, host_fuse_small=4)
@@ -404,7 +427,8 @@ def serve():
             raise SystemExit(f"kernel {name} was never launched while "
                              f"serving the dense path")
     return engine, launches, dict(tok_s=total / dt, seconds=dt, outs=outs,
-                                  hit_rate=st.hit_rate)
+                                  hit_rate=st.hit_rate,
+                                  tpot_ms=st.tpot_ms_p50)
 
 
 def check_layer(engine):
@@ -1010,6 +1034,294 @@ def serve_traced(params, base):
     if problems or rec.dropped:
         raise SystemExit(f"the trace is not valid: {problems[:5]}, "
                          f"{rec.dropped} dropped")
+    return launches
+
+
+def _static_engine(params, n: int, m: int, prefill_chunk: int):
+    """An engine over phase 4's weights (and its pinned host tier) with an
+    N x M cache, for the static batch."""
+    from repro_torch import build
+    from repro_torch.config import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=LAYERS)
+    engine, _ = build(
+        cfg, cache=dict(num_indexes=n, num_ways=m, policy="lru"),
+        serving=dict(max_batch=STATIC["batch"],
+                     capacity=STATIC["prompt"] + STATIC["steps"] + 1,
+                     prefill_chunk=prefill_chunk),
+        seed=0, params=params, device="cuda")
+    return engine
+
+
+def static_generate(params, base):
+    """Phase 12b (1): ``generate`` for STATIC's prompts through three cache
+    geometries sharing phase 4's weights; the tokens must be bitwise equal
+    (the paper's no-accuracy-trade-off claim: the grouped kernels read the
+    same weights from the slot buffer and from staged host copies). Returns
+    (the engines by label, the launch counts of the three runs, the
+    prompts)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    B, P, n = STATIC["batch"], STATIC["prompt"], STATIC["steps"]
+    engines, outs, rows, prompts = {}, {}, {}, None
+    kernels.reset_launches()
+    for label, N, M, chunk in STATIC["caches"]:
+        engine = _static_engine(params, N, M, chunk)
+        vocab = engine.cfg.vocab_size
+        if prompts is None:
+            prompts = np.random.default_rng(3).integers(
+                0, vocab, (B, P)).astype(np.int32)
+        decode, select = engine._decode_step, engine.select_tokens
+        step_ms, rows[label] = [], []
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def recording(logits, *a, **k):
+            rows[label].append(logits.float().cpu())
+            return select(logits, *a, **k)
+        engine._decode_step, engine.select_tokens = timed, recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = engine.generate(prompts, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del engine._decode_step, engine.select_tokens
+        slot_gb = sum(t.numel() * t.element_size()
+                      for t in engine.tiers.slots) / 1e9
+        ms = sum(step_ms) / len(step_ms)
+        print(f"[static] {label} cache N={N} M={M} ({slot_gb:.2f} GB of "
+              f"slots): generate {B} x {P} -> {n} tokens in {wall:.3f} s "
+              f"({B * n / wall:.3f} tok/s wall), decode {ms:.3f} ms/step "
+              f"(median {sorted(step_ms)[len(step_ms) // 2]:.3f}), hit rate "
+              f"{st.hit_rate:.4f} (hits={st.hits} accesses={st.accesses} "
+              f"fetches={st.fetched_experts}); first row "
+              f"{out[0, :8].tolist()}")
+        if out.shape != (B, n) or out.min() < 0 or out.max() >= vocab:
+            raise SystemExit(f"static {label}: bad tokens {out.tolist()}")
+        if st.first_tokens != B or st.tokens != B * (n - 1) \
+                or st.accesses != st.hits + st.host_assignments \
+                or st.fetched_experts > st.host_assignments:
+            raise SystemExit(f"static {label}: the stats identities fail")
+        outs[label] = out
+        engines[label] = engine
+    launches = kernels.launches()
+    print(f"[static] phase 4's dense tpot p50 {base['tpot_ms']:.3f} ms on "
+          f"the scheduler path ({card_line()}); generate launches "
+          f"{launches}")
+    ref_label = "full"
+    for label, out in outs.items():
+        diff = np.argwhere(out != outs[ref_label])
+        if diff.size:
+            r, s = (int(v) for v in diff[0])
+            row = rows[ref_label][s][r]
+            gap = float(row[outs[ref_label][r, s]] - row[out[r, s]])
+            raise SystemExit(f"static: {label}'s tokens differ from "
+                             f"{ref_label}'s at row {r} token {s} (logit "
+                             f"gap {gap:.4f})")
+    print(f"[static] tokens bitwise equal across the {len(outs)} cache "
+          f"geometries: {B * n}/{B * n}")
+    for name, count in launches.items():
+        if (count > 0) != (name in ("swiglu_gmm", "gmm", "flash_decode")):
+            raise SystemExit(f"static: kernel {name} launched {count} times")
+    return engines, launches, prompts
+
+
+def static_prefill_request(engines, prompts):
+    """Phase 12b (2): each prompt's first token through ``prefill_request``
+    with the bypass (the full cache's engine, prefill_chunk 0) and with
+    chunked warming (phase 4's geometry, prefill_chunk 8)."""
+    bypass, warm = engines["full"], engines["phase 4"]
+    for i, prompt in enumerate(prompts):
+        t0, _ = bypass.prefill_request(prompt)
+        t1, _ = warm.prefill_request(prompt)
+        print(f"[static] prompt {i}: first token bypass {t0}, warmed {t1}")
+        if t0 != t1:
+            raise SystemExit("static: warming changed a first token")
+    st = warm.stats
+    print(f"[static] warming: {st.prefill_tokens} tokens, hits="
+          f"{st.prefill_hits} accesses={st.prefill_accesses} fetches="
+          f"{st.prefill_fetched}; bypass accesses "
+          f"{bypass.stats.prefill_accesses}")
+    if st.prefill_accesses == 0 or bypass.stats.prefill_accesses != 0:
+        raise SystemExit("static: the warming replay did not run, or the "
+                         "bypass warmed")
+
+
+def static_oracle(engine):
+    """Phase 12b (3): ``collaborative_moe_reference`` (the sequential
+    oracle) against probe -> execute -> commit on one cached and one
+    uncached layer, 2 tokens of dup-free picks, three rounds each (misses,
+    then hits and evictions in a 4-way set), from two fresh tiers over
+    phase 4's host tier: hits and cache state exact, the slot buffers
+    bitwise, y within phase 5's tolerance (2^-6 of the largest value)."""
+    import torch
+    from repro_torch.config import CacheConfig
+    from repro_torch.core import collaborative as collab
+    cfg = engine.cfg
+    E, K, T = cfg.moe.num_experts, cfg.moe.top_k, 2
+    ccfg = CacheConfig(num_indexes=2, num_ways=4)
+    grouped, oracle = (collab.init_tiers(*engine.tiers.host, ccfg,
+                                         num_experts=E, device="cuda")
+                       for _ in range(2))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perm = torch.Generator().manual_seed(5)
+    for layer in (0, LAYERS - 1):
+        for rep in range(3):
+            x = torch.randn((T, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            top_i = torch.randperm(E, generator=perm)[:T * K].reshape(T, K)
+            top_i = top_i.to(torch.int32).cuda()
+            top_w = torch.rand((T, K), generator=gen, device="cuda")
+            top_w = top_w / top_w.sum(-1, keepdim=True)
+            y, grouped, sg = collab.collaborative_moe(grouped, layer, x,
+                                                      top_i, top_w, ccfg)
+            want, oracle, so = collab.collaborative_moe_reference(
+                oracle, layer, x, top_i, top_w, ccfg)
+            torch.cuda.synchronize()
+            err = (y.float() - want.float()).abs().max().item()
+            tol = 2 ** -6 * want.float().abs().max().item()
+            same = all(torch.equal(getattr(grouped.state, k),
+                                   getattr(oracle.state, k))
+                       for k in ("tags", "age", "clock", "in_flight"))
+            slots = all(torch.equal(a, b) for a, b in
+                        zip(grouped.slots, oracle.slots))
+            print(f"[static] oracle layer {layer} round {rep}: hits "
+                  f"{sg['hits']}/{so['hits']}, fetches "
+                  f"{sg['fetched_experts']}/{so['fetched_experts']}, state "
+                  f"{'equal' if same else 'DIFFERS'}, slots "
+                  f"{'equal' if slots else 'DIFFER'}, max_abs_err={err:.6g} "
+                  f"tol={tol:.6g}")
+            if not (same and slots and err <= tol
+                    and bool(torch.isfinite(y).all())
+                    and all(sg[k] == so[k] for k in
+                            ("hits", "accesses", "host_flops_assignments"))
+                    and sg["fetched_experts"] <= so["fetched_experts"]):
+                raise SystemExit(f"static: the engine's MoE layer {layer} "
+                                 f"disagrees with the sequential oracle")
+    del grouped, oracle
+    torch.cuda.empty_cache()
+
+
+def static_trace(params, cfg):
+    """Phase 12b (4): a router trace captured from the 4-layer model over
+    STATIC's teacher-forced tokens on the card, replayed through the torch
+    cache's ``access`` and ``NumpyCache`` (equal hits), then the
+    simulator on it and on a synthetic 32-layer trace: cost-model numbers
+    of the paper's testbed, not of this card."""
+    import numpy as np
+    import torch
+    from repro_torch.config import CacheConfig
+    from repro_torch.core import (NumpyCache, TraceConfig, access,
+                                  init_cache_state, synthetic_trace,
+                                  trace_stats)
+    from repro_torch.core.costmodel import PAPER_TIMINGS
+    from repro_torch.core.router_trace import capture_trace
+    from repro_torch.core.simulator import best_cache_config, simulate
+    tokens = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, STATIC["trace_tokens"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = capture_trace(cfg, params, tokens)
+    torch.cuda.synchronize()
+    print(f"[static] captured trace {trace.shape} in "
+          f"{time.perf_counter() - t0:.3f} s: {trace_stats(trace)}")
+    if trace.shape != (STATIC["trace_tokens"], LAYERS, cfg.moe.top_k) \
+            or trace.min() < 0 or trace.max() >= cfg.moe.num_experts:
+        raise SystemExit("static: the captured trace is malformed")
+    ccfg = CacheConfig(num_indexes=LAYERS, num_ways=2)
+    twin = NumpyCache(ccfg, num_experts=cfg.moe.num_experts)
+    state, hits = init_cache_state(ccfg), 0
+    for t in range(trace.shape[0]):
+        for layer in range(LAYERS):
+            twin.access(layer, [int(e) for e in trace[t, layer]])
+            state, h, _ = access(state, layer,
+                                 torch.from_numpy(trace[t, layer]).int(),
+                                 "lru")
+            hits += int(h.sum())
+    print(f"[static] replay N={LAYERS} M=2 lru: torch cache hits {hits}, "
+          f"NumpyCache hits {twin.hits} of {twin.accesses}")
+    if hits != twin.hits or not np.array_equal(state.tags.numpy(),
+                                               twin.tags):
+        raise SystemExit("static: the torch cache and NumpyCache disagree "
+                         "on the captured trace")
+    tm = PAPER_TIMINGS["mixtral-8x7b"]
+    synth = synthetic_trace(TraceConfig(num_tokens=STATIC["trace_tokens"],
+                                        num_layers=32, num_experts=8))
+    cfgs = best_cache_config(tm)
+    print(f"[static] paper testbed cost model (AMD 7960X + RTX 4090, PCIe "
+          f"4.0 x16; not this card): best_cache_config {cfgs}")
+    for label, tr in (("captured", trace), ("synthetic 32-layer", synth)):
+        for method in ("ours", "ours_prefetch", "cpu_only", "on_demand",
+                       "pregated", "fiddler"):
+            for threads in (1, 24):
+                r = simulate(tr, tm, threads, method, ccfg=cfgs[4])
+                print(f"[static] paper testbed model, {label} trace, "
+                      f"{method} {threads} threads: {r.tokens_per_s:.4f} "
+                      f"tok/s, hit rate {r.hit_rate:.4f}, "
+                      f"{r.joules_per_token:.2f} J/token")
+                if not (math.isfinite(r.tokens_per_s) and r.tokens_per_s > 0):
+                    raise SystemExit(f"static: simulate {method} failed")
+
+
+def static_mesh_step():
+    """Phase 12b (5): one train step of reduced smollm on the card under
+    the host mesh, bitwise equal to the step without a mesh (a second
+    run without one says whether the card's step repeats at all)."""
+    import torch
+    from repro_torch import models
+    from repro_torch.config import (OptimizerConfig, ShapeConfig, get_config,
+                                    reduced)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import init_opt_state, make_train_step
+    from repro_torch.sharding import use_mesh
+    from repro_torch.tree import leaves
+    cfg = reduced(get_config("smollm-360m"))
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in SyntheticLM(
+        cfg, ShapeConfig("t", 64, 2, "train"), seed=0).batch(0).items()}
+    outs = []
+    for mesh in (None, make_host_mesh(), None):
+        params = models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        step = make_train_step(cfg, ocfg)
+        opt = init_opt_state(params)
+        if mesh is None:
+            p, o, m = step(params, opt, batch)
+        else:
+            with use_mesh(mesh):
+                p, o, m = step(params, opt, batch)
+        outs.append([t.detach() for t in leaves(p) + leaves(o)]
+                    + [m["loss"], m["grad_norm"]])
+    same = [all(torch.equal(a, b) for a, b in zip(outs[0], o))
+            for o in outs[1:]]
+    print(f"[static] train step under make_host_mesh(): loss "
+          f"{float(outs[1][-2]):.6f}, bitwise equal to the step without a "
+          f"mesh: {same[0]} (a second step without one: {same[1]})")
+    if not same[0]:
+        raise SystemExit("static: the size-1 mesh changed the train step")
+
+
+def static_phase(params, base):
+    """Phase 12b: the static-batch path and the paper's tooling on phase
+    4's weights. Returns the launch counts of the ``generate`` runs."""
+    import torch
+    t0 = time.perf_counter()
+    engines, launches, prompts = static_generate(params, base)
+    static_prefill_request(engines, prompts)
+    static_oracle(engines["phase 4"])
+    cfg = engines["phase 4"].cfg
+    del engines
+    torch.cuda.empty_cache()
+    static_trace(params, cfg)
+    static_mesh_step()
+    print(f"[static] phase 12b took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1978,6 +2290,7 @@ def main() -> int:
     check_attention(paged)
     profile_decode(paged, "paged")
     profile_segment(paged)
+    static_launches = static_phase(engine.params, base)
     del engine, paged
     _release_host_tier()
     print(f"[serve] Mixtral's host tier released: host RSS {_rss_gb():.2f} "
@@ -2003,6 +2316,7 @@ def main() -> int:
                     "host": pf_launches["host"][name],
                     "traced": traced_launches[name],
                     "paged": paged_launches[name],
+                    "static": static_launches[name],
                     **{arch: moe_launches[arch][name]
                        for arch, _ in MOE_MODELS},
                     DENSE["arch"]: dense_launches_generic[name],

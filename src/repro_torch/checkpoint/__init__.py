@@ -1,5 +1,5 @@
 from .ckpt import (CheckpointManager, latest_step, load_checkpoint,
-                   save_checkpoint)
+                   reshard_tree, save_checkpoint)
 
 __all__ = ["CheckpointManager", "latest_step", "load_checkpoint",
-           "save_checkpoint"]
+           "reshard_tree", "save_checkpoint"]

@@ -10,9 +10,9 @@ with ``os.replace``, so a crash mid-save never corrupts the latest
 complete checkpoint. A checkpoint either package writes restores in the
 other. :class:`CheckpointManager` snapshots device tensors to host memory
 on the caller's thread and writes them on a daemon thread; ``wait()``
-joins it before the next save (one outstanding snapshot). The
-reference's ``reshard_tree`` (elastic restore onto a new mesh) belongs to
-``sharding/``, slice 8 of the port.
+joins it before the next save (one outstanding snapshot).
+:func:`reshard_tree` (elastic restore onto a mesh) places a restored host
+tree on the device of a one-device mesh; a larger mesh raises.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.ctx import require_one_device
 from repro_torch.tree import leaves, unflatten
 
 _NP_NAME = {torch.bfloat16: "bfloat16", torch.float32: "float32",
@@ -116,6 +117,25 @@ def load_checkpoint(dirpath: str | Path, template: Any,
         else:
             out.append(a)
     return unflatten(template, iter(out)), step
+
+
+def reshard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Elastic restore: place host arrays (tensors or numpy arrays) on
+    ``mesh`` per ``specs`` (a tree of the same structure). On a mesh of
+    one device every leaf goes to that device whatever its spec; a larger
+    mesh raises ``NotImplementedError``."""
+    require_one_device(mesh, "reshard_tree")
+    device = torch.device(mesh.device)
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(place(v, s) for v, s in zip(x, spec)))
+        if isinstance(x, (tuple, list)):
+            return type(x)(place(v, s) for v, s in zip(x, spec))
+        return torch.as_tensor(x).to(device)
+    return place(tree, specs)
 
 
 class CheckpointManager:

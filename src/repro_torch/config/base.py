@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Literal, Optional, Tuple
 
 LayerKind = Literal["attn", "mamba"]
+FFNKind = Literal["dense", "moe"]
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,10 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def attn_free(self) -> bool:
+        return all(k == "mamba" for k in self.layer_pattern)
+
     def layer_kind(self, i: int) -> LayerKind:
         return self.layer_pattern[i % len(self.layer_pattern)]
 
@@ -94,6 +99,24 @@ class ModelConfig:
         if not self.window_pattern:
             return -1
         return self.window_pattern[i % len(self.window_pattern)]
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if long-context (500k) decode is architecturally sensible:
+        no attention, at most a quarter of the layers attention (a hybrid
+        such as jamba), or at least half the window pattern local
+        (gemma3)."""
+        if self.attn_free:
+            return True
+        n_attn = sum(1 for i in range(self.num_layers)
+                     if self.layer_kind(i) == "attn")
+        if n_attn <= self.num_layers // 4:
+            return True
+        if self.window_pattern and sum(
+                1 for w in self.window_pattern if w > 0) * 2 \
+                >= len(self.window_pattern):
+            return True
+        return False
 
     # Parameter counts (analytic; the trainer prints them) ----------------
     def _attn_params(self) -> int:
@@ -143,6 +166,12 @@ class ModelConfig:
             total += self.num_layers * self._attn_params()
         return int(total)
 
+    def expert_bytes(self, bytes_per_param: int = 2) -> int:
+        """Size of a single expert's weights (the cache slot unit)."""
+        if self.moe is None:
+            return 0
+        return 3 * self.d_model * self.moe.d_ff * bytes_per_param
+
 
 @dataclass(frozen=True)
 class CacheConfig:
@@ -155,6 +184,20 @@ class CacheConfig:
     @property
     def num_slots(self) -> int:
         return self.num_indexes * self.num_ways
+
+    @staticmethod
+    def from_memory(mem_bytes: int, expert_bytes: int, num_ways: int,
+                    policy: str = "lru", max_layers: int = 10 ** 9
+                    ) -> "CacheConfig":
+        """The paper's slot math: S = mem / expert_bytes slots, N =
+        floor(S / M) indexes (at most ``max_layers``)."""
+        slots = int(mem_bytes // max(expert_bytes, 1))
+        n = min(slots // num_ways, max_layers)
+        if n < 1:
+            raise ValueError(
+                f"cache memory {mem_bytes} too small for even one "
+                f"{num_ways}-way set of {expert_bytes}-byte experts")
+        return CacheConfig(num_indexes=n, num_ways=num_ways, policy=policy)
 
 
 @dataclass(frozen=True)

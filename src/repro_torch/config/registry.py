@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 from .base import ModelConfig
 
@@ -34,3 +34,8 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)

@@ -136,6 +136,13 @@ def access_ex(state: CacheState, layer: int, experts: torch.Tensor,
             torch.tensor(spec_served, dtype=torch.bool))
 
 
+def access(state: CacheState, layer: int, experts: torch.Tensor,
+           policy: str) -> Tuple[CacheState, torch.Tensor, torch.Tensor]:
+    """:func:`access_ex` without the speculative-hit channel."""
+    new_state, hits, ways, _ = access_ex(state, layer, experts, policy)
+    return new_state, hits, ways
+
+
 def reserve(state: CacheState, layer: int, experts: torch.Tensor,
             policy: str, protect: Optional[torch.Tensor] = None,
             priority: Optional[torch.Tensor] = None
@@ -203,6 +210,50 @@ def land(state: CacheState) -> CacheState:
     f = state.in_flight
     return state._replace(in_flight=torch.where(
         f == FLAG_PENDING, torch.full_like(f, FLAG_SPEC), f))
+
+
+def access_scan_reference(state: CacheState, layer: int,
+                          experts: torch.Tensor, policy: str
+                          ) -> Tuple[CacheState, torch.Tensor, torch.Tensor]:
+    """The seed per-pick oracle (the reference's ``access_scan_reference``):
+    each pick reads the set, picks the hit way or the victim (empty ways
+    first, else the min-age way), writes it back and advances the clock.
+    Kept as the parity oracle for :func:`access`, never for serving. It
+    predates speculative prefetch: valid only on flag-free states
+    (``in_flight`` all zero), which it passes through untouched. Returns
+    (new state, hit [A] bool, way [A] int32 — -1 for masked, uncovered or
+    static-policy misses)."""
+    spec = policy_spec(policy)
+    covered = layer < state.num_indexes
+    row = layer if covered else 0
+    tags, age = state.tags.clone(), state.age.clone()
+    clock = int(state.clock)
+    hits, ways = [], []
+    for e in (int(v) for v in experts.tolist()):
+        tags_l, age_l = tags[row].tolist(), age[row].tolist()
+        hit = covered and e >= 0 and e in tags_l
+        hit_way = tags_l.index(e) if e in tags_l else 0
+        if spec.is_static:
+            hits.append(hit)
+            ways.append(hit_way if hit else -1)
+            continue
+        scores = [-1 if t < 0 else a for t, a in zip(tags_l, age_l)]
+        way = hit_way if hit else scores.index(min(scores))
+        do_write = covered and e >= 0
+        refresh = do_write if spec.refresh_on_hit else (do_write and not hit)
+        if do_write:
+            tags[row, way] = e
+        if refresh:
+            age[row, way] = clock
+        clock += 1
+        hits.append(hit)
+        ways.append(way if do_write else -1)
+    hit_t = torch.tensor(hits, dtype=torch.bool)
+    way_t = torch.tensor(ways, dtype=I32)
+    if spec.is_static:
+        return state, hit_t, way_t
+    return (CacheState(tags, age, torch.tensor(clock, dtype=I32),
+                       state.in_flight), hit_t, way_t)
 
 
 def slot_id(layer, way, num_ways: int):

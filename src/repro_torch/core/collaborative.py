@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.config import CacheConfig
 from repro_torch.kernels.moe_gmm import moe_ffn
+from repro_torch.models.layers import mm, silu
 from . import cache as cache_lib
 
 
@@ -475,3 +476,64 @@ def collaborative_moe_offloaded(tiers: ExpertTiers, layer: int,
                               executor)
     tiers, fetch = commit(tiers, layer, pr, staged, ccfg)
     return y, tiers, _stats(pr, fetch)
+
+
+def _ffn_rows(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU expert FFN of each row on its own weights: x [A, D],
+    w1/w3 [A, D, F], w2 [A, F, D] -> [A, D], each product rounded once to
+    x's dtype (the reference's vmapped ``_ffn_one``)."""
+    xa = x[:, None]
+    h = silu(mm(xa, w1)) * mm(xa, w3)
+    return mm(h, w2)[:, 0]
+
+
+def collaborative_moe_reference(tiers: ExpertTiers, layer: int,
+                                x: torch.Tensor, top_i: torch.Tensor,
+                                top_w: torch.Tensor, ccfg: CacheConfig
+                                ) -> Tuple[torch.Tensor, ExpertTiers,
+                                           Dict[str, int]]:
+    """The seed per-assignment path (the reference's
+    ``collaborative_moe_reference``), kept as the sequential parity oracle
+    of probe -> execute -> commit; plain PyTorch, never on a served path.
+
+    :func:`~repro_torch.core.cache.access_scan_reference` services the
+    picks; every assignment runs its expert's single-row SwiGLU FFN on
+    both tiers (the slot buffer at its way, and the host table's weights
+    moved to x's device), ``where(hit, device, host)`` picks one, and the
+    top-k weighted outputs add up per token in pick order. Then the
+    sequential post-fetch copies each missed, inserted expert from the
+    host tier into its slot, in place, in pick order. Known limitation,
+    inherited: duplicate picks of a non-resident expert across concurrent
+    tokens read the stale slot buffer (the first pick's insert reports
+    the second as a hit); the grouped path fixes this. Valid on flag-free
+    cache states only. Returns (y [T, D], tiers, stats)."""
+    T, K = top_i.shape
+    A = T * K
+    flat_e = top_i.to("cpu").reshape(-1).to(torch.int32)
+    new_state, hits, ways = cache_lib.access_scan_reference(
+        tiers.state, layer, flat_e, ccfg.policy)
+    slots = torch.where(ways >= 0, cache_lib.slot_id(
+        layer, torch.clamp(ways, min=0), ccfg.num_ways), 0).long()
+    e_idx = flat_e.long()
+    tok = torch.arange(T).repeat_interleave(K)
+    xa = x[tok.to(x.device)]
+    dev = x.device
+    y_dev = _ffn_rows(*(s[slots.to(s.device)].to(dev) for s in tiers.slots),
+                      xa)
+    y_host = _ffn_rows(*(h[layer][e_idx].to(dev) for h in tiers.host), xa)
+    ya = torch.where(hits.to(dev)[:, None], y_dev, y_host)
+    ya = ya * top_w.reshape(-1)[:, None].to(ya.dtype)
+    ya = ya.reshape(T, K, -1)
+    y = torch.zeros_like(x) + ya[:, 0]
+    for k in range(1, K):
+        y = y + ya[:, k]
+
+    do_fetch = ~hits & (ways >= 0)
+    for a in torch.nonzero(do_fetch).reshape(-1).tolist():
+        for slot, host in zip(tiers.slots, tiers.host):
+            slot[int(slots[a])].copy_(host[layer, int(e_idx[a])])
+    stats = {"hits": int(hits.sum()), "accesses": A,
+             "host_flops_assignments": int((~hits).sum()),
+             "fetched_experts": int(do_fetch.sum())}
+    return y, tiers._replace(state=new_state), stats

@@ -1,13 +1,15 @@
-"""The paper's measured per-expert timings, as far as the host lane's
-dispatch policy reads them (the port's own copy of part of the
-reference's ``core/costmodel.py``).
+"""The paper's measured timings and power draws (the port's own copy of
+the reference's ``core/costmodel.py``, its testbed half).
 
 These numbers are the paper's testbed (AMD 7960X + RTX 4090 over PCIe
 4.0 x16), not the H100's: the port keeps them so that its CPU/fetch split
-of cache-miss groups equals the reference's decision for decision. Table
-III's "expert comp/comm time" rows are per MoE layer *pair* (top-2
-experts); per-expert values are half. ``act_transfer_ms`` is the
-activation round trip (attention output to the host and back).
+of cache-miss groups equals the reference's decision for decision, and so
+that the discrete-event simulator (:mod:`repro_torch.core.simulator`)
+regenerates the paper's figures and tables. The reference's TPU roofline
+constants have no counterpart here. Table III's "expert comp/comm time"
+rows are per MoE layer *pair* (top-2 experts); per-expert values are
+half. ``act_transfer_ms`` is the activation round trip (attention output
+to the host and back).
 """
 from __future__ import annotations
 
@@ -53,6 +55,21 @@ PHI35_TIMINGS = PaperModelTimings(
 )
 
 PAPER_TIMINGS = {"mixtral-8x7b": MIXTRAL_TIMINGS, "phi35-moe": PHI35_TIMINGS}
+
+# Pre-gated MoE power draw for the energy comparison (paper Table IV).
+PREGATED_POWER_W = {
+    "mixtral-8x7b": {"cpu": 92.1, "gpu": 96.3},
+    "phi35-moe": {"cpu": 88.2, "gpu": 100.7},
+}
+
+PCIE_BW_GBPS = 64.0                    # PCIe 4.0 x16, bidirectional
+
+# Cross-layer speculative prefetch (the simulator's ``ours_prefetch`` and
+# the engine's EngineConfig.prefetch): layer l+1's router on layer l's
+# hidden state predicts the next layer's top-k; DAOP reports ~90%. The
+# simulator's default predictor accuracy; the live engine measures its
+# own (``predicted_correct / predicted``).
+PREFETCH_PREDICTOR_ACCURACY = 0.9
 
 
 def cpu_pair_ms(t: PaperModelTimings, threads: int) -> float:

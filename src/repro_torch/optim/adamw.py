@@ -1,6 +1,6 @@
 """AdamW with fp32 master weights (the port's ``optim/adamw.py``, the
 counterpart of the reference's at world size 1: its ZeRO-1 sharding of
-the optimizer state is slice 8's).
+the optimizer state has no counterpart, as the port runs on one device).
 
 The rounding points are the reference's: gradients stay in the
 parameter's dtype (bf16 for bf16 leaves) through the clip, whose scale

@@ -1,11 +1,12 @@
 """The train step: loss -> grads -> clip -> (compress) -> AdamW (the
-port's ``optim/train_step.py``, the reference's at world size 1).
+port's ``optim/train_step.py``).
 
-The reference's mesh branches (ZeRO-1 resharding of the gradients and
-optimizer state, the fp32 accumulator in the optimizer sharding) belong
-to ``sharding/``, slice 8 of the port, and are not here: this is the
-reference's step with no mesh active, where its sharding constraints
-are no-ops.
+The step runs on one device. Under no mesh, or the host mesh of one
+device (:mod:`repro_torch.sharding`), it is the plain single-device step;
+under a larger mesh it raises ``NotImplementedError`` before any work.
+The reference's ZeRO-1 mesh branches (gradients, moments and master
+weights constrained to the optimizer sharding) have no counterpart:
+placement across devices is not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 
 from repro_torch.config import ModelConfig, OptimizerConfig
 from repro_torch.models import loss_fn
+from repro_torch.sharding import current_mesh
+from repro_torch.sharding.ctx import require_one_device
 from repro_torch.tree import leaves, tree_map, unflatten
 from .adamw import (AdamWState, adamw_update, clip_by_global_norm,
                     maybe_compress_grads)
@@ -62,6 +65,9 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
 
     def train_step(params, opt_state: AdamWState, batch
                    ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        mesh = current_mesh()
+        if mesh is not None:
+            require_one_device(mesh, "train_step")
         if microbatches > 1:
             gsum = None
             lsum = xsum = asum = 0.0

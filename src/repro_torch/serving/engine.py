@@ -30,6 +30,12 @@ cache before decode. Like the reference, whose FFN output in the replay
 has no consumer and is pruned by XLA, the replay runs no FFN: what is
 left is the probe and the post-fetch's weight copies.
 
+The static-batch path of the reference is here too, for dense KV only:
+:meth:`prefill` (the bypass forward, tiers untouched), :meth:`prefill_request`
+(one request through the ticket primitives) and :meth:`generate` (B prompts
+decoded together with one shared SamplingParams); under ``kv_paged`` all
+three refuse.
+
 With ``EngineConfig.prefill_segment`` the admission forward itself goes
 incremental: :meth:`start_prefill` only tokenizes (and, paged, allocates
 pages), and each :meth:`advance_prefill_state` call forwards ONE
@@ -81,7 +87,8 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.moe import route
 from repro_torch.obs.trace import NULL_RECORDER, now_ns
 from .kv_pool import KVPagePool, PageTable
-from .sampling import GREEDY, SamplingParams, batch_arrays, sample_tokens
+from .sampling import (GREEDY, SamplingParams, batch_arrays, sample_tokens,
+                       step_seed)
 from .stats import EngineStats
 
 Params = Dict[str, Any]
@@ -244,6 +251,19 @@ def _score(pred_prev: torch.Tensor, rep_prev: torch.Tensor,
     return {"predicted": int(pred_valid.sum()),
             "predicted_correct": int((pred_ok & pred_valid).sum()),
             "prefetch_wasted": int((issued_prev & ~demanded).sum())}
+
+
+def _seed_of(seed: Union[None, int, torch.Generator]) -> Optional[int]:
+    """A sampling seed from an int, or drawn from a ``torch.Generator``."""
+    if isinstance(seed, torch.Generator):
+        return int(torch.randint(0, 2 ** 62, (), generator=seed))
+    return None if seed is None else int(seed)
+
+
+def _host_tokens(tokens) -> np.ndarray:
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    return np.asarray(tokens, np.int32)
 
 
 def _one_prompt(prompt) -> np.ndarray:
@@ -612,6 +632,14 @@ class CollaborativeEngine:
                 f"use the scheduler primitives (start_prefill / bind_slot "
                 f"/ decode_batch / release_slot)")
 
+    def prefill(self, tokens) -> Tuple[torch.Tensor, Params]:
+        """Bypass prefill (the tiers untouched: the cache stays cold until
+        decode). tokens [B, P] -> (last-real-position logits [B, 1, V],
+        decode state with pos = P)."""
+        self._require_dense("prefill")
+        logits, state, _ = self._padded_prefill(_host_tokens(tokens))
+        return logits, state
+
     def _prefill_trace(self, tokens: torch.Tensor, plen: int,
                        want_trace: bool = False):
         """Full-prompt forward over tokens [B, capacity] (prompt
@@ -873,6 +901,27 @@ class CollaborativeEngine:
         self._counters["first_tokens"] += 1
         return tok
 
+    def prefill_request(self, prompt, sampling: SamplingParams = GREEDY,
+                        seed: Union[None, int, torch.Generator] = None
+                        ) -> Tuple[int, Params]:
+        """Prefill one request synchronously; returns (first token, decode
+        state with pos = len(prompt), B = 1). Warms the cache chunk by
+        chunk when ``EngineConfig.prefill_chunk > 0``, bypasses it
+        otherwise: the first token is the same either way. ``seed`` is
+        the request's first-step seed (an int, or drawn from a
+        ``torch.Generator``), needed only for non-greedy sampling. The
+        scheduler uses the ticket primitives instead."""
+        self._require_dense("prefill_request")
+        seed = _seed_of(seed)
+        ticket = self.start_prefill(prompt)
+        try:
+            self.advance_prefill(ticket, ticket.n_chunks)
+            tok = self.sample_first(ticket, sampling, seed)
+        except BaseException:
+            self.abort_ticket(ticket)
+            raise
+        return tok, ticket.state
+
     # -- vectorized per-slot sampling --------------------------------------
     def select_tokens(self, logits: torch.Tensor,
                       sampling: Union[None, SamplingParams,
@@ -958,6 +1007,51 @@ class CollaborativeEngine:
             self._per_layer_accesses[layer] += s["accesses"]
         c["tokens"] += n_active
         c["steps"] += 1
+
+    # -- static-batch convenience path -------------------------------------
+    def generate(self, prompt, steps: int,
+                 sampling: SamplingParams = GREEDY,
+                 seed: Union[None, int, torch.Generator] = None
+                 ) -> Tuple[np.ndarray, EngineStats]:
+        """Static-batch generation: all prompt rows [B, P] start and stop
+        together with one shared SamplingParams (the scheduler interleaves
+        requests with per-request sampling instead), through the bypass
+        prefill (warming is per request). Returns (tokens [B, steps], the
+        engine's stats): the B prefill-sampled tokens count in
+        ``first_tokens``, each decode step's in ``tokens``.
+
+        Seeded sampling: row r's draw at step i uses the seed
+        ``step_seed(step_seed(base, i), r)``, ``base`` being
+        ``sampling.seed``, else ``seed`` (an int, or drawn from a
+        ``torch.Generator``), else 0. Same base, same tokens; rows draw
+        independently. Greedy needs no seed."""
+        self._require_dense("generate")
+        prompt = _host_tokens(prompt)
+        B, P = prompt.shape
+        base = sampling.seed if sampling.seed is not None else \
+            (_seed_of(seed) or 0)
+
+        def step_seeds(i: int) -> Optional[List[int]]:
+            if sampling.greedy:
+                return None
+            s = step_seed(base, i)
+            return [step_seed(s, r) for r in range(B)]
+
+        logits, state = self.prefill(prompt)
+        state["pos"] = torch.full((B,), P, dtype=torch.int32,
+                                  device=self.device)
+        tok = self.select_tokens(logits[:, 0], sampling, step_seeds(0))
+        self._counters["first_tokens"] += B
+        active = np.ones(B, bool)
+        out = [tok.numpy()]
+        for i in range(steps - 1):
+            logits, stats = self._decode_step(
+                tok[:, None].to(self.device, torch.int64), state, active)
+            tok = self.select_tokens(logits[:, 0], sampling,
+                                     step_seeds(i + 1))
+            out.append(tok.numpy())
+            self._accumulate(stats, B)
+        return np.stack(out, 1), self.stats
 
     def _accumulate_prefill(self, stats: List[Dict[str, int]],
                             n_tokens: int) -> None:

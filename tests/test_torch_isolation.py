@@ -37,7 +37,10 @@ def test_port_has_sources():
                  "kernels/ssd_scan/ops.py", "launch/train.py",
                  "optim/adamw.py", "optim/train_step.py", "data/pipeline.py",
                  "checkpoint/ckpt.py", "runtime/fault_tolerance.py",
-                 "runtime/elastic.py"):
+                 "runtime/elastic.py", "core/router_trace.py",
+                 "core/simulator.py", "core/ep_cache.py",
+                 "sharding/partition.py", "sharding/ctx.py",
+                 "launch/mesh.py"):
         assert must in names
 
 
@@ -52,7 +55,10 @@ def test_source_imports_neither_jax_nor_repro(path):
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.kernels, repro_torch.bridge, "
-            "repro_torch.serving.kv_pool, repro_torch.launch.train\n"
+            "repro_torch.serving.kv_pool, repro_torch.launch.train, "
+            "repro_torch.core.simulator, repro_torch.core.ep_cache, "
+            "repro_torch.core.router_trace, repro_torch.sharding, "
+            "repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -283,10 +283,19 @@ def test_engine_config_options():
                          **ported)
 
 
-def test_dense_only_paths_refuse_paged(setup):
+@pytest.mark.parametrize("call", [
+    lambda eng, p: eng.generate(p[None], steps=2),
+    lambda eng, p: eng.prefill(p[None]),
+    lambda eng, p: eng.prefill_chunked(p),
+    lambda eng, p: eng.prefill_request(p)],
+    ids=["generate", "prefill", "prefill_chunked", "prefill_request"])
+def test_dense_only_paths_refuse_paged(setup, call):
+    """The dense-KV conveniences refuse under kv_paged rather than bypass
+    the pool (the reference's tests/test_paged_serving.py:160-171)."""
     engine, _ = _paged_engine(setup)
     with pytest.raises(RuntimeError, match="dense-KV path"):
-        engine.prefill_chunked(setup[2][0])
+        call(engine, setup[2][0])
+    assert engine.kv_pool.pages_in_use == 0
 
 
 def test_serve_cli_paged_segment_runs_on_the_cpu(capsys):
