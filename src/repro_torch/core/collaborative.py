@@ -4,8 +4,10 @@ one GPU (counterpart of the reference's ``core/collaborative.py``):
   probe    — land in-flight reservations, service the router's top-k picks
              against the host-side set-associative cache
              (:mod:`repro_torch.core.cache`) and bucket the step's
-             assignments by unique expert. The picks cross from the device
-             to the host here: the one device->host sync of a MoE layer.
+             assignments by unique expert. The picks must be on the host:
+             reading them is the one device->host sync of a MoE layer,
+             which the engine makes just before the probe (its ``picks``
+             phase); a device tensor given here is read here instead.
   execute  — grouped: the assignments run through a [G, A, D] dispatch
              buffer and the hand-written grouped kernels
              (:func:`repro_torch.kernels.moe_gmm.moe_ffn`). Each unique
@@ -41,6 +43,14 @@ copy ends; (d) on the CPU there is no stream and copies are synchronous.
 Tiers: ``host_*`` [L, E, D, F|F, D] in host memory (pinned on a GPU), the
 slot buffers ``slot_*`` [N*M, D, F|F, D] on the compute device, updated IN
 PLACE by commit and prefetch; the cache state is replaced functionally.
+
+Copies by route (:func:`copy_bytes`, counted on the host from the probe,
+the staged groups and the fetch mask, whole experts of ``w1 + w3 + w2``):
+staging reads resident experts device to device (``stage_d2d_bytes``) and
+the others host to device (``stage_h2d_bytes``), both on the compute
+stream; the post-fetch writes slots from the staging buffer
+(``slot_d2d_bytes``) or from the host tier (``slot_h2d_bytes``), on the
+copy stream. The prefetch's slot writes are not counted.
 """
 from __future__ import annotations
 
@@ -193,7 +203,8 @@ def probe(tiers: ExpertTiers, layer: int, top_i: torch.Tensor,
           ccfg: CacheConfig,
           active: Optional[torch.Tensor] = None) -> ProbeResult:
     """Stage 1 — cache check + grouping for one layer's top-k picks.
-    ``top_i`` [T, K] may lie on the device: it is read to the host here.
+    ``top_i`` [T, K] on the host (the engine reads it before the probe);
+    one on the device is read to the host here.
     Residency for execution is probed against the landed PRE-access state
     (a slot claimed this step holds its weights from the next step on).
     Landing is where the compute stream waits for the layer's slot copies."""
@@ -436,6 +447,32 @@ def prefetch(tiers: ExpertTiers, layer: int, pred_i: torch.Tensor,
     tiers.copy.write(layer, writes)
     return (tiers._replace(state=new_state), rep_p, issued,
             int(issued_a.sum()))
+
+
+def expert_bytes(tiers: ExpertTiers) -> int:
+    """Bytes of one expert's ``w1 + w3 + w2``: what one staging or slot
+    write copies."""
+    return sum(h[0, 0].nbytes for h in tiers.host)
+
+
+def copy_bytes(pr: ProbeResult, staged: Optional[Staged],
+               fetch: torch.Tensor, nbytes: int) -> Dict[str, int]:
+    """One layer's weight copies by route, ``nbytes`` an expert: the
+    staged groups read from the slot buffer (resident) or the host tier,
+    and the fetched groups written from the staging buffer (staged from
+    the host this step, as :func:`_post_fetch` picks) or the host tier."""
+    resident, fetched = pr.resident.tolist(), fetch.tolist()
+    groups = staged.groups if staged is not None else ()
+    res = slot_d2d = 0
+    for g in groups:
+        if resident[g]:
+            res += 1
+        elif fetched[g]:
+            slot_d2d += 1
+    return {"stage_d2d_bytes": res * nbytes,
+            "stage_h2d_bytes": (len(groups) - res) * nbytes,
+            "slot_d2d_bytes": slot_d2d * nbytes,
+            "slot_h2d_bytes": (sum(fetched) - slot_d2d) * nbytes}
 
 
 def _stats(pr: ProbeResult, fetch: torch.Tensor) -> Dict[str, int]:

@@ -82,7 +82,8 @@ class HostExpertExecutor:
         # telemetry: dispatches, groups run, groups the fusion lane ran;
         # censused dispatches, their summed effective workers, groups that
         # landed on their pinned bucket; summed per-worker ns inside expert
-        # FFN compute and the most bucket tasks one dispatch submitted
+        # FFN compute and the most bucket tasks one dispatch submitted;
+        # the first start and the last end of the work since mark()
         self.calls = 0
         self.groups = 0
         self.fused = 0
@@ -91,6 +92,8 @@ class HostExpertExecutor:
         self.affinity_hits = 0
         self.busy_ns = 0
         self.queue_peak = 0
+        self.first_ns = 0
+        self.last_ns = 0
 
     def close(self) -> None:
         if self._pool is not None:
@@ -119,9 +122,21 @@ class HostExpertExecutor:
                 _upcast(self.w2, layer, experts, (cols,)))
         return out
 
-    def _add_busy(self, t0: int) -> None:
+    def mark(self) -> int:
+        """Start timing a new stretch of work (the engine's decode step):
+        ``first_ns`` / ``last_ns`` then bound the work done after it.
+        Returns ``busy_ns`` so far."""
         with self._lock:
-            self.busy_ns += time.perf_counter_ns() - t0
+            self.first_ns = self.last_ns = 0
+            return self.busy_ns
+
+    def _add_busy(self, t0: int) -> None:
+        t1 = time.perf_counter_ns()
+        with self._lock:
+            self.busy_ns += t1 - t0
+            if self.first_ns == 0 or t0 < self.first_ns:
+                self.first_ns = t0
+            self.last_ns = max(self.last_ns, t1)
 
     def compute_groups(self, layer, rep_e, run, xbuf: torch.Tensor,
                        counts=None) -> torch.Tensor:

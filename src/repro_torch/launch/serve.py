@@ -253,6 +253,13 @@ def main(argv=None) -> None:
           f"steps, {stats.admission_stalls} admission stalls)")
     print(f"  cache hit rate: {stats.hit_rate:.3f} (hits={stats.hits} "
           f"accesses={stats.accesses} fetches={stats.fetched_experts})")
+    if stats.tokens:
+        mb = [getattr(stats, k) / 1e6 / stats.tokens for k in (
+            "stage_d2d_bytes", "stage_h2d_bytes", "slot_d2d_bytes",
+            "slot_h2d_bytes")]
+        print(f"  expert copies, MB per decoded token: staged {mb[0]:.3f} "
+              f"d2d + {mb[1]:.3f} h2d, slot writes {mb[2]:.3f} d2d + "
+              f"{mb[3]:.3f} h2d")
     if stats.prefill_accesses:
         print(f"  prefill warming: {stats.prefill_tokens} tokens / "
               f"{stats.prefill_chunks} chunks, hit rate "

@@ -17,6 +17,17 @@ Drain-point rule: emission calls — ``complete`` / ``instant`` /
 scheduler's ``_obs_*`` helpers, called after the step's stats and
 tokens reached the host. Device work is timed by bracketing the calls
 that queue it at the drain, never by a sync added for the trace.
+
+Beyond the reference's names, the port's engine emits, on its
+``engine`` track, each decode layer's host phases inside ``dispatch``
+(``attn_route``, ``picks`` — the blocking read of the layer's top-k,
+which the engine makes before ``probe`` — ``probe``, ``execute``,
+``post_fetch`` and, with prefetch, ``prefetch``; ``execute`` and
+``post_fetch`` carry the layer's staged and slot-write bytes by route)
+and one ``prefill_forward`` span per padded admission forward. The
+bytes accumulate in ``EngineStats``' copy channel (``stage_d2d_bytes``,
+``stage_h2d_bytes``, ``slot_d2d_bytes``, ``slot_h2d_bytes``); the host
+lane's ``host_execute`` span bounds where its pool ran in the step.
 """
 from .metrics import LogHistogram
 from .trace import (NULL_RECORDER, NoopRecorder, TraceEvent, TraceRecorder,

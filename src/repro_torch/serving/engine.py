@@ -53,15 +53,28 @@ two tables share is copied on write before an append.
 
 With a recorder (``recorder=``, a :class:`repro_torch.obs.TraceRecorder`)
 the engine emits the reference's spans, counters and instants, all from
-its two drain helpers (:meth:`_obs_decode`, :meth:`_obs_prefill`): a
-``decode_step`` span with the step's lane split, its ``plan`` /
-``dispatch`` / ``commit`` / ``execute+drain`` phases, the ``lane:*``
-counters, prefetch and host-lane events, the page pool's gauge and
-deltas, and one ``segment_stream`` or ``warm_replay`` span per prefill
-advance. The reference's ``dispatch`` phase is the asynchronous launch of
-its jitted step; the port's layer loop syncs inside every layer (the
-probe reads each layer's routing on the host), so here ``dispatch``
-covers almost the whole step and ``execute+drain`` the rest.
+its drain helpers (:meth:`_obs_decode`, :meth:`_obs_prefill`,
+:meth:`_obs_prefill_forward`): a ``decode_step`` span with the step's
+lane split, its ``plan`` / ``dispatch`` / ``commit`` / ``execute+drain``
+phases, the ``lane:*`` counters, prefetch and host-lane events, the page
+pool's gauge and deltas, and one ``segment_stream`` or ``warm_replay``
+span per prefill advance. The reference's ``dispatch`` phase is the
+asynchronous launch of its jitted step; the port's layer loop syncs
+inside every layer (the engine reads each layer's routing on the host
+before the probe), so here ``dispatch`` covers almost the whole step and
+``execute+drain`` the rest.
+
+The port opens ``dispatch`` up, which the reference's jitted step has no
+host phases for: each layer's clock readings land in a preallocated
+buffer and the drain emits them as spans that tile the layer, in order
+``attn_route`` (norms, attention, router and top-k), ``picks`` (the
+blocking device->host read of the layer's top-k), ``probe``, ``execute``
+(args: the staged weight bytes, ``d2d_bytes`` / ``h2d_bytes``),
+``post_fetch`` (commit and the layer's stats; args: its slot writes'
+bytes) and, with prefetch, ``prefetch``. The copy bytes accumulate in
+:class:`EngineStats` (``stage_*_bytes``, ``slot_*_bytes``). Each padded
+admission forward gets a ``prefill_forward`` span (args: ``tokens`` and
+the expert tables' ``h2d_bytes``).
 
 Differences from the reference, all in how, never in what: the cache
 state, its bookkeeping and the page tables live on the host; KV caches,
@@ -98,6 +111,13 @@ Params = Dict[str, Any]
 UNPORTED: Dict[str, Any] = {}
 NO_DISPATCH = {"cpu_expert_calls": 0, "cpu_tokens": 0,
                "miss_expert_groups": 0, "fused_groups": 0}
+# a decode layer's host phases, in order (prefetch only with
+# EngineConfig.prefetch): each spans two of the layer's clock readings
+PHASES = ("attn_route", "picks", "probe", "execute", "post_fetch",
+          "prefetch")
+# the copy channel: per-layer stats keys and EngineStats counters
+COPY_KEYS = ("stage_d2d_bytes", "stage_h2d_bytes", "slot_d2d_bytes",
+             "slot_h2d_bytes")
 
 
 @dataclass(frozen=True)
@@ -340,9 +360,14 @@ class CollaborativeEngine:
             "prefill_hits": 0, "prefill_accesses": 0,
             "prefill_fetched": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "first_tokens": 0, "prefill_segments": 0,
-            "prefix_tokens_skipped": 0}
+            "prefix_tokens_skipped": 0, **dict.fromkeys(COPY_KEYS, 0)}
         self._per_layer_hits = np.zeros(L, np.int64)
         self._per_layer_accesses = np.zeros(L, np.int64)
+        self._expert_bytes = collab.expert_bytes(self.tiers)
+        # each decode layer's phase boundaries (now_ns), read in the layer
+        # loop and emitted by _obs_decode
+        self._phases = PHASES if ecfg.prefetch else PHASES[:-1]
+        self._phase_ns = [[0] * (len(self._phases) + 1) for _ in range(L)]
 
     @property
     def stats(self) -> EngineStats:
@@ -382,7 +407,11 @@ class CollaborativeEngine:
         With prefetch the layer loop is a software pipeline: after layer
         l's MoE, layer l+1's router on layer l's output predicts layer
         l+1's picks and reserves them; the prediction and its issued
-        groups are scored against the next layer's actual routing."""
+        groups are scored against the next layer's actual routing.
+
+        Each layer reads the clock at its phases' boundaries (``PHASES``)
+        into ``self._phase_ns[layer]``, for the drain's phase spans; the
+        per-layer stats carry its copy bytes by route."""
         cfg, ccfg, ecfg = self.cfg, self.ecfg.cache, self.ecfg
         K = cfg.moe.top_k
         x = transformer._embed_inputs(self.params, tokens, cfg)
@@ -397,6 +426,8 @@ class CollaborativeEngine:
         issued_prev = torch.zeros((NG,), dtype=torch.bool)
         stats = []
         for layer in range(cfg.num_layers):
+            ts = self._phase_ns[layer]
+            ts[0] = now_ns()
             lp = transformer.layer_params(lp_all, layer)
             h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
             st = {"k": kv["k"][layer], "v": kv["v"][layer]}
@@ -410,7 +441,11 @@ class CollaborativeEngine:
             x = x + o
             h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
             _, top_i, top_w = route(lp["moe"]["router"], h2[:, 0].float(), K)
+            ts[1] = now_ns()
+            top_i = top_i.to("cpu")         # waits for the device's queue
+            ts[2] = now_ns()
             pr = collab.probe(self.tiers, layer, top_i, ccfg, active=act)
+            ts[3] = now_ns()
             if ecfg.host_compute:
                 y, staged, dstats = hostexec.dispatch_execute(
                     self.tiers, layer, h2[:, 0], top_w, pr, ccfg,
@@ -420,20 +455,25 @@ class CollaborativeEngine:
                 y, staged = collab.execute(self.tiers, layer, h2[:, 0],
                                            top_w, pr, ccfg)
                 dstats = NO_DISPATCH
+            ts[4] = now_ns()
             self.tiers, fetch = collab.commit(self.tiers, layer, pr, staged,
                                               ccfg)
             x = x + y[:, None].to(x.dtype)
-            lstats = {**collab._stats(pr, fetch), **dstats}
+            lstats = {**collab._stats(pr, fetch), **dstats,
+                      **collab.copy_bytes(pr, staged, fetch,
+                                          self._expert_bytes)}
+            ts[5] = now_ns()
             if ecfg.prefetch:
                 pred_i = self._predict(x, layer, act)
                 lstats.update(_score(pred_prev, rep_prev, issued_prev,
-                                     pr.flat_e, top_i.cpu(), act))
+                                     pr.flat_e, top_i, act))
                 self.tiers, rep_prev, issued_prev, n_issued = \
                     collab.prefetch(self.tiers, layer + 1, pred_i, ccfg,
                                     active=act,
                                     rank_votes=ecfg.prefetch_rank_votes)
                 lstats["prefetch_issued"] = n_issued
                 pred_prev = pred_i
+                ts[6] = now_ns()
             stats.append(lstats)
         x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
         logits = transformer.lm_logits(self.params, x, cfg)
@@ -751,8 +791,10 @@ class CollaborativeEngine:
         if self.ecfg.prefill_segment > 0:
             return self._start_segmented(prompt, table, shared,
                                          warm=chunk != 0)
+        t0 = now_ns()
         if chunk == 0:
             logits, state, _ = self._padded_prefill(prompt)
+            self._obs_prefill_forward(t0, now_ns(), P)
             return PrefillTicket(prompt_len=P, chunk=0, n_chunks=0,
                                  logits=logits, state=state, table=table,
                                  prompt=prompt[0], shared_tokens=shared)
@@ -760,6 +802,7 @@ class CollaborativeEngine:
         n_chunks = -(-P // chunk)
         pad_to = n_chunks * chunk
         top_i = trace["top_i"][:, 0].cpu()                   # [L, S, K]
+        self._obs_prefill_forward(t0, now_ns(), P)
         if pad_to > top_i.shape[1]:
             top_i = torch.nn.functional.pad(
                 top_i, (0, 0, 0, pad_to - top_i.shape[1]))
@@ -975,8 +1018,8 @@ class CollaborativeEngine:
         t_plan = now_ns()
         # the host lane runs inside the step here (in the reference,
         # after its asynchronous dispatch returned): read its busy time
-        # before the step
-        busy0 = (self.host_executor.busy_ns
+        # before the step, and time the step's work from here on
+        busy0 = (self.host_executor.mark()
                  if self.host_executor is not None else 0)
         logits, stats = self._decode_step(tok.to(self.device), state,
                                           active_np, pages)
@@ -991,7 +1034,7 @@ class CollaborativeEngine:
         n_active = int(active_np.sum())
         self._accumulate(stats, n_active)
         self._obs_decode(t0, t_plan, t_disp, t_commit, snap, busy0,
-                         n_active)
+                         n_active, stats)
         return logits, state
 
     def _accumulate(self, stats: List[Dict[str, int]], n_active: int) -> None:
@@ -1000,7 +1043,7 @@ class CollaborativeEngine:
             for k in ("hits", "accesses", "fetched_experts", "prefetch_hits",
                       "prefetch_issued", "prefetch_wasted", "predicted",
                       "predicted_correct", "cpu_expert_calls", "cpu_tokens",
-                      "miss_expert_groups", "fused_groups"):
+                      "miss_expert_groups", "fused_groups") + COPY_KEYS:
                 c[k] += s.get(k, 0)
             c["host_assignments"] += s["host_flops_assignments"]
             self._per_layer_hits[layer] += s["hits"]
@@ -1064,12 +1107,14 @@ class CollaborativeEngine:
 
     # -- trace drain helpers (the ONLY emission sites) ---------------------
     def _obs_decode(self, t0: int, t_plan: int, t_disp: int, t_commit: int,
-                    snap, busy0: int, n_active: int) -> None:
+                    snap, busy0: int, n_active: int,
+                    stats: List[Dict[str, int]]) -> None:
         """Drain point: emit the decode step's phase spans and lane
         attribution AFTER ``_accumulate`` drained the step's stats. The
-        layer loop syncs inside every layer (the probe reads the routing
-        on the host), so ``dispatch`` covers almost the whole step and
-        ``execute+drain`` only what is left after it."""
+        layer loop syncs inside every layer (the picks read of each layer's
+        routing), so ``dispatch`` covers almost the whole step and
+        ``execute+drain`` only what is left after it; inside ``dispatch``,
+        each layer's host phases from the layer loop's clock readings."""
         t1 = now_ns()
         obs = self.obs
         c = self._counters
@@ -1085,6 +1130,10 @@ class CollaborativeEngine:
         if self.ecfg.kv_paged:
             obs.complete("engine", "commit", t_disp, t_commit)
         obs.complete("engine", "execute+drain", t_commit, t1)
+        if obs.enabled:
+            # a span a phase a layer (125 a Mixtral step): skipped outright
+            # when tracing is off
+            self._obs_layers(stats)
         # per-step lane attribution: the gpu-hit vs fetch vs cpu-miss
         # split of this step's assignments
         obs.counter("lane:gpu", "hit_experts", hit, ts_ns=t1)
@@ -1097,14 +1146,12 @@ class CollaborativeEngine:
         if c["prefetch_hits"] - snap[4]:
             obs.instant("lane:gpu", "prefetch_land",
                         {"hits": c["prefetch_hits"] - snap[4]}, ts_ns=t1)
-        if self.host_executor is not None:
-            dbusy = self.host_executor.busy_ns - busy0
-            if dbusy > 0:
-                # the host pool's aggregate busy time this step, placed to
-                # end at the drain (the workers' own placement is not
-                # timed)
-                obs.complete("lane:cpu", "host_execute", t1 - dbusy, t1,
-                             {"queue_peak": self.host_executor.queue_peak})
+        ex = self.host_executor
+        if ex is not None and ex.busy_ns > busy0:
+            # where the host pool ran this step: its first piece of work's
+            # start to its last one's end
+            obs.complete("lane:cpu", "host_execute", ex.first_ns,
+                         ex.last_ns, {"queue_peak": ex.queue_peak})
         if self.kv_pool is not None:
             pool = self.kv_pool
             obs.counter("engine", "kv_pages_in_use", pool.pages_in_use,
@@ -1118,6 +1165,33 @@ class CollaborativeEngine:
                     obs.instant("engine", name, {"count": cur - prev},
                                 ts_ns=t1)
                     self._obs_prev[name] = cur
+
+    def _obs_layers(self, stats: List[Dict[str, int]]) -> None:
+        """The decode step's per-layer phase spans, tiling each layer from
+        its clock readings: ``execute`` carries the layer's staged weight
+        bytes, ``post_fetch`` its slot writes' bytes."""
+        obs, names = self.obs, self._phases
+        for layer, (row, s) in enumerate(zip(self._phase_ns, stats)):
+            for i, name in enumerate(names):
+                args = {"layer": layer}
+                if name == "execute":
+                    args.update(d2d_bytes=s["stage_d2d_bytes"],
+                                h2d_bytes=s["stage_h2d_bytes"])
+                elif name == "post_fetch":
+                    args.update(d2d_bytes=s["slot_d2d_bytes"],
+                                h2d_bytes=s["slot_h2d_bytes"])
+                obs.complete("engine", name, row[i], row[i + 1], args)
+
+    def _obs_prefill_forward(self, t0: int, t1: int, tokens: int) -> None:
+        """Drain point: the admission's padded prefill forward, from
+        before its launch to its routing reaching the host. On the bypass
+        path (``chunk == 0``) no routing is read, and the span times the
+        launches only. ``h2d_bytes``: the expert tables the forward copies
+        to the device, one whole table a layer."""
+        self.obs.complete("engine", "prefill_forward", t0, t1,
+                          {"tokens": tokens,
+                           "h2d_bytes": sum(h.nbytes
+                                            for h in self.tiers.host)})
 
     def _obs_prefill(self, t0: int, n_units: int,
                      ticket: PrefillTicket) -> None:

@@ -33,6 +33,9 @@ class EngineStats:
     demand hit rates stay comparable with and without warming. Host
     channel: miss-expert groups the hybrid dispatcher ran on the CPU
     (``cpu_expert_calls``) and their token assignments (``cpu_tokens``).
+    Copy channel: the decode steps' expert-weight bytes by route
+    (``stage_d2d_bytes`` / ``stage_h2d_bytes`` / ``slot_d2d_bytes`` /
+    ``slot_h2d_bytes``, :func:`repro_torch.core.collaborative.copy_bytes`).
     """
     # decode demand channel
     hits: int = 0
@@ -91,6 +94,15 @@ class EngineStats:
     cow_forks: int = 0
     # zero-ref prefix pages parked in the pool's retention LRU (gauge)
     prefix_pages_retained: int = 0
+    # decode weight-copy channel, bytes by route (counted on the host,
+    # whole experts): staging of resident experts from the slot buffer
+    # and of missed ones from the host tier (compute stream), post-fetch
+    # slot writes from the staging buffer and from the host tier (copy
+    # stream)
+    stage_d2d_bytes: int = 0
+    stage_h2d_bytes: int = 0
+    slot_d2d_bytes: int = 0
+    slot_h2d_bytes: int = 0
     # per-MoE-layer demand series (tuples: immutable + JSON-native)
     per_layer_hits: Tuple[int, ...] = ()
     per_layer_accesses: Tuple[int, ...] = ()
