@@ -40,6 +40,11 @@ wait for the last copy into layer l's slots before its staging reads them;
 (c) a staging buffer a copy reads is kept from the allocator until the
 copy ends; (d) on the CPU there is no stream and copies are synchronous.
 
+The engine's prefill forward reads the tiers as well
+(:func:`forward_experts`): each layer's whole [E, ...] table, resident
+experts copied from their slots and the rest from the host tier, with the
+cache state and the slots only read, and under the same ordering (b).
+
 Tiers: ``host_*`` [L, E, D, F|F, D] in host memory (pinned on a GPU), the
 slot buffers ``slot_*`` [N*M, D, F|F, D] on the compute device, updated IN
 PLACE by commit and prefetch; the cache state is replaced functionally.
@@ -234,24 +239,58 @@ class Staged(NamedTuple):
     w2: torch.Tensor          # [len(groups), F, D]
 
 
+def _gather_experts(tiers: ExpertTiers, layer: int, experts: List[int],
+                    ways: List[int], ccfg: CacheConfig, device
+                    ) -> List[torch.Tensor]:
+    """Fresh w1, w3 [n, D, F] and w2 [n, F, D] buffers on ``device``, row c
+    holding expert ``experts[c]``'s weights: from its slot where
+    ``ways[c] >= 0`` (resident), else host->device from pinned memory
+    (non-blocking)."""
+    out = [torch.empty((len(experts),) + tuple(s.shape[1:]), dtype=s.dtype,
+                       device=device) for s in tiers.slots]
+    for c, (e, way) in enumerate(zip(experts, ways)):
+        if way >= 0:
+            src = cache_lib.slot_id(layer, way, ccfg.num_ways)
+            for buf, slot in zip(out, tiers.slots):
+                buf[c].copy_(slot[src])
+        else:
+            for buf, host in zip(out, tiers.host):
+                buf[c].copy_(host[layer, e], non_blocking=True)
+    return out
+
+
 def _stage_group_weights(tiers: ExpertTiers, layer: int, pr: ProbeResult,
                          ccfg: CacheConfig, groups: List[int],
                          device) -> Staged:
     """Each unique expert's weights once: resident groups from the slot
     buffer, the rest host->device from pinned memory (non-blocking)."""
-    G = len(groups)
-    out = [torch.empty((G,) + tuple(s.shape[1:]), dtype=s.dtype,
-                       device=device) for s in tiers.slots]
-    for c, g in enumerate(groups):
-        if bool(pr.resident[g]):
-            src = cache_lib.slot_id(layer, int(pr.res_way[g]), ccfg.num_ways)
-            for buf, slot in zip(out, tiers.slots):
-                buf[c].copy_(slot[src])
-        else:
-            e = int(pr.rep_e[g])
-            for buf, host in zip(out, tiers.host):
-                buf[c].copy_(host[layer, e], non_blocking=True)
-    return Staged(groups, *out)
+    experts = [int(pr.rep_e[g]) for g in groups]
+    ways = [int(pr.res_way[g]) if bool(pr.resident[g]) else -1
+            for g in groups]
+    return Staged(groups, *_gather_experts(tiers, layer, experts, ways, ccfg,
+                                           device))
+
+
+def forward_experts(tiers: ExpertTiers, layer: int, ccfg: CacheConfig
+                    ) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """A prefill forward's expert table of ``layer``: (w1, w3 [E, D, F],
+    w2 [E, F, D]) on the slot buffer's device, and how many of the E
+    experts were read from their slots. A resident expert is copied from
+    its slot, every other one host->device from the pinned tier; layers
+    past the cache's coverage read all E from the host. Residency is
+    :func:`~repro_torch.core.cache.lookup` on the state as it stands, not
+    landed, so a PENDING reservation (its copy may still be in flight)
+    reads from the host. Only reads: the cache state and the slots are
+    left as they are. The compute stream first waits for the layer's last
+    slot write (b); a later slot write waits for these reads (a)."""
+    tiers.copy.wait(layer)
+    E = tiers.host_w1.shape[1]
+    hit, way = cache_lib.lookup(tiers.state, layer,
+                                torch.arange(E, dtype=torch.int32))
+    ways = torch.where(hit, way, -1).tolist()
+    table = _gather_experts(tiers, layer, list(range(E)), ways, ccfg,
+                            tiers.slot_w1.device)
+    return tuple(table), int(hit.sum())
 
 
 def _stage_dispatch(x: torch.Tensor, K: int, pr: ProbeResult,

@@ -5,7 +5,11 @@ This is the dense-framework path over the full expert table: the
 engine's prefill forward, every forward of the generic path's MoE layers
 (jamba, llama4) and every train-mode forward (:func:`moe_train`, with
 the Switch load-balance loss); the engine's decode step runs the two-tier
-execution of :mod:`repro_torch.core.collaborative`. The expert products
+execution of :mod:`repro_torch.core.collaborative`. The engine's forward
+gives :func:`moe_apply` its own source of the layer's table
+(:func:`repro_torch.core.collaborative.forward_experts`: resident experts
+from the cache's slots, the rest from the host tier); every other caller
+reads the layer's own tables (:func:`_experts`). The expert products
 here are plain large matrix products (the reference leaves them to XLA
 einsums), differentiable through the dispatch's gathers and scatters and
 the combine weights, so the router trains. A layer with shared experts
@@ -14,7 +18,7 @@ adds their output to the routed one.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +26,7 @@ from repro_torch.config import MoEConfig
 from .layers import ffn_apply, mm, silu
 
 Params = Dict[str, torch.Tensor]
+Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]    # w1, w3, w2
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int
@@ -75,9 +80,10 @@ def _dispatch(xb: torch.Tensor, tib: torch.Tensor, C: int, E: int):
 
 
 def _experts(p: Params, device) -> Tuple[torch.Tensor, ...]:
-    """The layer's expert table on the compute device. A host-tier table
-    (pinned memory: the engine's stack) is copied over for this call and
-    dropped after it; the generic path's tables already live there."""
+    """The layer's expert table on the compute device, where the caller
+    gives no source of its own: a host-tier table (pinned memory) is
+    copied over whole for this call and dropped after it; the generic
+    path's tables already live there."""
     return tuple(p[k].to(device, non_blocking=True) for k in ("w1", "w3", "w2"))
 
 
@@ -89,7 +95,8 @@ def _combine(out, token, slot, keep, order, tw, S, E, C, dtype):
 
 
 def _moe_one_group(p: Params, xf: torch.Tensor, top_i: torch.Tensor,
-                   top_w: torch.Tensor, m: MoEConfig, cf: float
+                   top_w: torch.Tensor, m: MoEConfig, cf: float,
+                   experts: Optional[Callable[[], Tables]] = None
                    ) -> torch.Tensor:
     """Flat single-group dispatch (decode-shaped: T = B tokens)."""
     T, D = xf.shape
@@ -97,19 +104,23 @@ def _moe_one_group(p: Params, xf: torch.Tensor, top_i: torch.Tensor,
     C = max(int(T * K / E * cf), 1)
     C = (C + 7) // 8 * 8
     buf, token, slot, keep, order = _dispatch(xf, top_i, C, E)
-    w1, w3, w2 = _experts(p, xf.device)
+    w1, w3, w2 = experts() if experts else _experts(p, xf.device)
     h = silu(mm(buf, w1)) * mm(buf, w3)
     out = mm(h, w2)
     return _combine(out, token, slot, keep, order, top_w, T, E, C, xf.dtype)
 
 
 def moe_apply(p: Params, x: torch.Tensor, m: MoEConfig,
-              capacity_factor: Optional[float] = None) -> torch.Tensor:
+              capacity_factor: Optional[float] = None,
+              experts: Optional[Callable[[], Tables]] = None
+              ) -> torch.Tensor:
     """x: [B, S, D] -> y [B, S, D] (serve mode: no aux loss).
 
     Dispatch is per example when S > 1, one flat group when S == 1, with
     the reference's capacity rule (serve slack only where drops are
-    probable: few assignments per dispatch group)."""
+    probable: few assignments per dispatch group). ``experts``, called
+    once, gives the layer's (w1, w3, w2) on x's device in place of
+    :func:`_experts` over ``p``'s tables."""
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     cf = m.capacity_factor if capacity_factor is None else capacity_factor
@@ -118,12 +129,12 @@ def moe_apply(p: Params, x: torch.Tensor, m: MoEConfig,
     xf = x.reshape(B * S, D)
     _, top_i, top_w = route(p["router"], xf, K)
     if S == 1:
-        y = _moe_one_group(p, xf, top_i, top_w, m, cf)
+        y = _moe_one_group(p, xf, top_i, top_w, m, cf, experts)
     else:
         C = max(int(S * K / E * cf), 1)
         C = (C + 7) // 8 * 8
         ti, tw = top_i.reshape(B, S, K), top_w.reshape(B, S, K)
-        w1, w3, w2 = _experts(p, x.device)
+        w1, w3, w2 = experts() if experts else _experts(p, x.device)
         ys = []
         for b in range(B):
             buf, token, slot, keep, order = _dispatch(x[b], ti[b], C, E)

@@ -37,8 +37,9 @@ mode reaches no kernel: it picks the differentiable functions by mode.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -322,7 +323,7 @@ def _embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
                  mode: str, st: Optional[Params], pos, positions,
                  pages=None, kv_write_min=None, kv_write_max=None,
-                 want_trace: bool = False
+                 want_trace: bool = False, experts=None
                  ) -> Tuple[torch.Tensor, Optional[Params],
                             Optional[Params]]:
     """One layer (the reference's ``_apply_layer``): attention or Mamba,
@@ -332,7 +333,8 @@ def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
     place (decode and segment attention); the trace (MoE slots with
     ``want_trace``) holds the routing ``top_i``/``top_w`` [B, S, K] and
     the post-ln2 hidden ``h2`` [B, S, D] from the same router weights and
-    h2 that the layer's MoE consults."""
+    h2 that the layer's MoE consults. ``experts``: the MoE's source of
+    its expert table (:func:`moe_apply`), None for the layer's own."""
     B, S = x.shape[:2]
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     new = None
@@ -362,7 +364,8 @@ def _apply_layer(lp: Params, x: torch.Tensor, slot: Slot, cfg: ModelConfig,
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if slot.is_moe:
             f = moe_apply(lp["moe"], h2, cfg.moe,
-                          capacity_factor=cfg.moe.serve_capacity_factor)
+                          capacity_factor=cfg.moe.serve_capacity_factor,
+                          experts=experts)
             if want_trace:
                 K = cfg.moe.top_k
                 _, top_i, top_w = route(lp["moe"]["router"],
@@ -483,7 +486,8 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              kv_write_min=None, kv_write_max=None,
              patches: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
-             remat: bool = True):
+             remat: bool = True,
+             expert_source: Optional[Callable[[int], Tuple]] = None):
     """Embedding + all layers in order + final norm.
 
     Train (every stack): tokens [B, S], with the vlm family's ``patches``
@@ -520,7 +524,13 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     With ``want_trace`` (prefill and segment) the trace mirrors the
     scan/rem tree for the MoE slots: ``trace["scan"]["s{j}"]`` holds
     ``top_i``/``top_w`` [G, B, S, K] and ``h2`` [G, B, S, D] (remainder
-    MoE layers under ``trace["rem"]`` without the [G] axis)."""
+    MoE layers under ``trace["rem"]`` without the [G] axis).
+
+    ``expert_source`` (prefill, segment, decode), a callable from a
+    layer's index in :func:`layer_order` to its expert table (w1, w3,
+    w2) on the compute device, is where each MoE layer reads its experts
+    (the engine's cache-aware source); without it each reads its own
+    tables."""
     kind = _decoder_only(cfg)
     if mode == "train":
         x, aux = _train_backbone(params, tokens, cfg, patches, positions,
@@ -550,12 +560,14 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         positions = _positions(positions, cfg, S, B, x.device)
     new_states: Params = {}
     traces: Params = {}
-    for kind_, key, g, slot in layer_order(cfg):
+    for i, (kind_, key, g, slot) in enumerate(layer_order(cfg)):
         lp = _at(params[kind_][key], g)
         st = _at(state[kind_][key], g) if mode != "prefill" else None
+        experts = None if expert_source is None else \
+            functools.partial(expert_source, i)
         x, new, tr = _apply_layer(lp, x, slot, cfg, mode, st, pos,
                                   positions, pages, kv_write_min,
-                                  kv_write_max, want_trace)
+                                  kv_write_max, want_trace, experts)
         if new is not None:
             _collect(new_states, (kind_, key, g), new)
         if tr is not None:

@@ -24,10 +24,13 @@ Beyond the reference's names, the port's engine emits, on its
 which the engine makes before ``probe`` — ``probe``, ``execute``,
 ``post_fetch`` and, with prefetch, ``prefetch``; ``execute`` and
 ``post_fetch`` carry the layer's staged and slot-write bytes by route)
-and one ``prefill_forward`` span per padded admission forward. The
-bytes accumulate in ``EngineStats``' copy channel (``stage_d2d_bytes``,
-``stage_h2d_bytes``, ``slot_d2d_bytes``, ``slot_h2d_bytes``); the host
-lane's ``host_execute`` span bounds where its pool ran in the step.
+and one ``prefill_forward`` span per padded admission forward (its
+expert-table reads from the slots and from the host tier, and their
+bytes). The decode bytes accumulate in ``EngineStats``' copy channel
+(``stage_d2d_bytes``, ``stage_h2d_bytes``, ``slot_d2d_bytes``,
+``slot_h2d_bytes``), the forwards' reads in ``prefill_forward_resident``
+/ ``prefill_forward_experts``; the host lane's ``host_execute`` span
+bounds where its pool ran in the step.
 """
 from .metrics import LogHistogram
 from .trace import (NULL_RECORDER, NoopRecorder, TraceEvent, TraceRecorder,

@@ -73,8 +73,17 @@ blocking device->host read of the layer's top-k), ``probe``, ``execute``
 ``post_fetch`` (commit and the layer's stats; args: its slot writes'
 bytes) and, with prefetch, ``prefetch``. The copy bytes accumulate in
 :class:`EngineStats` (``stage_*_bytes``, ``slot_*_bytes``). Each padded
-admission forward gets a ``prefill_forward`` span (args: ``tokens`` and
-the expert tables' ``h2d_bytes``).
+admission forward gets a ``prefill_forward`` span (args: ``tokens``, the
+expert reads ``resident_experts`` of ``experts`` and their bytes,
+``d2d_bytes`` from the slots and ``h2d_bytes`` from the host tier).
+
+Every prefill forward (the padded one, each streamed segment, the static
+batch's) reads its MoE layers' expert tables through the tiers
+(:func:`repro_torch.core.collaborative.forward_experts`): each expert
+resident in the cache is copied from its HBM slot, and only the others
+cross PCIe from the pinned host tier. It only reads the cache and the
+slots. ``EngineStats.prefill_forward_resident`` /
+``prefill_forward_experts`` count those reads.
 
 Differences from the reference, all in how, never in what: the cache
 state, its bookkeeping and the page tables live on the host; KV caches,
@@ -360,7 +369,8 @@ class CollaborativeEngine:
             "prefill_hits": 0, "prefill_accesses": 0,
             "prefill_fetched": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "first_tokens": 0, "prefill_segments": 0,
-            "prefix_tokens_skipped": 0, **dict.fromkeys(COPY_KEYS, 0)}
+            "prefix_tokens_skipped": 0, **dict.fromkeys(COPY_KEYS, 0),
+            "prefill_forward_resident": 0, "prefill_forward_experts": 0}
         self._per_layer_hits = np.zeros(L, np.int64)
         self._per_layer_accesses = np.zeros(L, np.int64)
         self._expert_bytes = collab.expert_bytes(self.tiers)
@@ -686,12 +696,27 @@ class CollaborativeEngine:
         left-aligned, zero-padded). Returns (logits at position plen-1
         [B, 1, V], decode state with pos = plen, trace | None)."""
         x, state, trace = transformer.backbone(
-            self.params, tokens, self.cfg, "prefill", want_trace=want_trace)
+            self.params, tokens, self.cfg, "prefill", want_trace=want_trace,
+            expert_source=self._forward_experts)
         logits = transformer.lm_logits(self.params, x[:, plen - 1:plen],
                                        self.cfg)
         state = {"scan": state["scan"],
                  "pos": torch.tensor(plen, dtype=torch.int32)}
         return logits, state, (trace["scan"]["s0"] if want_trace else None)
+
+    def _forward_experts(self, layer: int):
+        """A prefill forward's expert source: the layer's table with each
+        resident expert read from its slot, the rest from the host tier
+        (:func:`collab.forward_experts`); counts the reads."""
+        table, resident = collab.forward_experts(self.tiers, layer,
+                                                 self.ecfg.cache)
+        self._counters["prefill_forward_resident"] += resident
+        self._counters["prefill_forward_experts"] += table[0].shape[0]
+        return table
+
+    def _forward_reads(self) -> Tuple[int, int]:
+        c = self._counters
+        return c["prefill_forward_resident"], c["prefill_forward_experts"]
 
     def _check_prompt_len(self, P: int) -> None:
         cap = self.ecfg.capacity
@@ -738,7 +763,8 @@ class CollaborativeEngine:
         x, new_state, trace = transformer.backbone(
             self.params, tokens, self.cfg, "segment", want_trace=warm,
             state={"scan": scan_state, "pos": pos0}, pages=pages,
-            kv_write_min=wmin, kv_write_max=plen)
+            kv_write_min=wmin, kv_write_max=plen,
+            expert_source=self._forward_experts)
         rel = min(max(plen - 1 - pos0, 0), C - 1)
         logits = transformer.lm_logits(self.params, x[:, rel:rel + 1],
                                        self.cfg)
@@ -791,10 +817,10 @@ class CollaborativeEngine:
         if self.ecfg.prefill_segment > 0:
             return self._start_segmented(prompt, table, shared,
                                          warm=chunk != 0)
-        t0 = now_ns()
+        t0, reads0 = now_ns(), self._forward_reads()
         if chunk == 0:
             logits, state, _ = self._padded_prefill(prompt)
-            self._obs_prefill_forward(t0, now_ns(), P)
+            self._obs_prefill_forward(t0, now_ns(), P, reads0)
             return PrefillTicket(prompt_len=P, chunk=0, n_chunks=0,
                                  logits=logits, state=state, table=table,
                                  prompt=prompt[0], shared_tokens=shared)
@@ -802,7 +828,7 @@ class CollaborativeEngine:
         n_chunks = -(-P // chunk)
         pad_to = n_chunks * chunk
         top_i = trace["top_i"][:, 0].cpu()                   # [L, S, K]
-        self._obs_prefill_forward(t0, now_ns(), P)
+        self._obs_prefill_forward(t0, now_ns(), P, reads0)
         if pad_to > top_i.shape[1]:
             top_i = torch.nn.functional.pad(
                 top_i, (0, 0, 0, pad_to - top_i.shape[1]))
@@ -1182,16 +1208,23 @@ class CollaborativeEngine:
                                 h2d_bytes=s["slot_h2d_bytes"])
                 obs.complete("engine", name, row[i], row[i + 1], args)
 
-    def _obs_prefill_forward(self, t0: int, t1: int, tokens: int) -> None:
+    def _obs_prefill_forward(self, t0: int, t1: int, tokens: int,
+                             reads0: Tuple[int, int]) -> None:
         """Drain point: the admission's padded prefill forward, from
         before its launch to its routing reaching the host. On the bypass
         path (``chunk == 0``) no routing is read, and the span times the
-        launches only. ``h2d_bytes``: the expert tables the forward copies
-        to the device, one whole table a layer."""
+        launches only. ``reads0``: :meth:`_forward_reads` before it. Args:
+        the expert tables' reads, ``resident_experts`` of ``experts``, and
+        the bytes they copied, ``d2d_bytes`` from the slots and
+        ``h2d_bytes`` from the host tier."""
+        resident, total = (b - a for a, b in zip(reads0,
+                                                 self._forward_reads()))
+        nbytes = self._expert_bytes
         self.obs.complete("engine", "prefill_forward", t0, t1,
                           {"tokens": tokens,
-                           "h2d_bytes": sum(h.nbytes
-                                            for h in self.tiers.host)})
+                           "h2d_bytes": (total - resident) * nbytes,
+                           "d2d_bytes": resident * nbytes,
+                           "resident_experts": resident, "experts": total})
 
     def _obs_prefill(self, t0: int, n_units: int,
                      ticket: PrefillTicket) -> None:

@@ -36,6 +36,10 @@ class EngineStats:
     Copy channel: the decode steps' expert-weight bytes by route
     (``stage_d2d_bytes`` / ``stage_h2d_bytes`` / ``slot_d2d_bytes`` /
     ``slot_h2d_bytes``, :func:`repro_torch.core.collaborative.copy_bytes`).
+    Prefill forward channel: the prefill forwards' expert-table reads
+    (``prefill_forward_experts``) and those served from the slots
+    (``prefill_forward_resident``,
+    :func:`repro_torch.core.collaborative.forward_experts`).
     """
     # decode demand channel
     hits: int = 0
@@ -103,6 +107,11 @@ class EngineStats:
     stage_h2d_bytes: int = 0
     slot_d2d_bytes: int = 0
     slot_h2d_bytes: int = 0
+    # prefill forward channel: expert-table reads of the prefill forwards'
+    # MoE layers (E a layer a forward), and those read from a resident
+    # expert's slot in HBM rather than from the host tier
+    prefill_forward_resident: int = 0
+    prefill_forward_experts: int = 0
     # per-MoE-layer demand series (tuples: immutable + JSON-native)
     per_layer_hits: Tuple[int, ...] = ()
     per_layer_accesses: Tuple[int, ...] = ()

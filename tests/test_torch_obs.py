@@ -14,7 +14,8 @@ and a fork; cross-layer prefetch with the CPU miss lane. What must hold:
   never emits its ``host_execute`` span; the port's does. And the port
   opens up its ``dispatch`` span, which the reference's jitted layer
   loop has no host phases for (``PORT_ONLY``): per-layer phase spans and
-  a ``prefill_forward`` span per padded admission forward.
+  a ``prefill_forward`` span per padded admission forward, whose args
+  count its expert-table reads from the slots and from the host tier.
 * The phases tile each layer inside their step's ``dispatch``, in layer
   order; their copy-byte args are the step's ``EngineStats`` deltas and
   a hand count from the probe results.
@@ -24,6 +25,10 @@ and a fork; cross-layer prefetch with the CPU miss lane. What must hold:
   tick before the first tick whose streamed tokens differ (the known
   near tie: request 5 at its 4th token, ROADMAP Queue 3), and equal the
   port's own ``EngineStats`` deltas on every step.
+* Every prefill forward's expert reads (``EngineStats``'
+  ``prefill_forward_resident`` / ``prefill_forward_experts``, and the
+  ``prefill_forward`` span's args) equal a hand count from
+  ``cache.lookup`` on the cache state before it.
 * Tracing is bit-neutral: the same tokens and counters with the
   recorder on and off.
 * The trace validates, and every request's lifecycle is covered.
@@ -47,10 +52,12 @@ from repro.serving import build as jax_build  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
 from repro_torch import build as torch_build  # noqa: E402
 from repro_torch import hostexec  # noqa: E402
+from repro_torch.core import cache as tcache  # noqa: E402
 from repro_torch.core import collaborative as tcollab  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.config import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.obs import (NULL_RECORDER, NoopRecorder,  # noqa: E402
                              TraceRecorder, chrome_trace,
                              validate_chrome_trace, write_chrome_trace)
@@ -92,6 +99,12 @@ COPY = {"stage_d2d_bytes": ("execute", "d2d_bytes"),
         "slot_h2d_bytes": ("post_fetch", "h2d_bytes")}
 
 
+# the prefill_forward span's args, and the counters of the forwards' reads
+FORWARD_ARGS = ("d2d_bytes", "experts", "h2d_bytes", "resident_experts",
+                "tokens")
+FORWARD_READS = ("prefill_forward_resident", "prefill_forward_experts")
+
+
 def _port_only(mode):
     """Event shapes only the port emits (its host phases inside
     ``dispatch``; the padded forward's span where prefill is not
@@ -101,7 +114,7 @@ def _port_only(mode):
             "post_fetch": ("d2d_bytes", "h2d_bytes", "layer")}
     out = {("X", "engine", p, args.get(p, ("layer",))) for p in phases}
     if not SERVING[mode].get("prefill_segment"):
-        out.add(("X", "engine", "prefill_forward", ("h2d_bytes", "tokens")))
+        out.add(("X", "engine", "prefill_forward", FORWARD_ARGS))
     return out
 
 
@@ -235,13 +248,27 @@ def _drive(sched, vocab, paged):
 def _port_serve(tparams, mode, recorder):
     """The port's run; each decode step's EngineStats delta recorded (the
     copy channel's apart), and each of its layers' probe result and fetch
-    mask."""
+    mask; for each prefill forward, the experts ``cache.lookup`` finds
+    resident on the state before it, of all it reads, and its delta of
+    the forward-read counters."""
     tcfg = reduced(get_config("mixtral-8x7b"))
     engine, sched = torch_build(tcfg, cache=CACHE, serving=SERVING[mode],
                                 params=tparams, seed=0, device="cpu",
                                 recorder=recorder)
-    deltas, copies, probes = [], [], []
+    deltas, copies, probes, forwards = [], [], [], []
     decode, commit = engine.decode_batch, tcollab.commit
+    backbone = ttransformer.backbone
+    L, E = tcfg.num_layers, tcfg.moe.num_experts
+
+    def seen_backbone(*a, **k):
+        state, before = engine.tiers.state, dataclasses.asdict(engine.stats)
+        hand = sum(int(tcache.lookup(state, layer, torch.arange(
+            E, dtype=torch.int32))[0].sum()) for layer in range(L))
+        out = backbone(*a, **k)
+        after = dataclasses.asdict(engine.stats)
+        forwards.append(((hand, L * E),
+                         tuple(after[f] - before[f] for f in FORWARD_READS)))
+        return out
 
     def seen_commit(tiers, layer, pr, staged, ccfg):
         tiers, fetch = commit(tiers, layer, pr, staged, ccfg)
@@ -263,12 +290,16 @@ def _port_serve(tparams, mode, recorder):
         return out
 
     engine.decode_batch = decode_batch
-    ticks, steps_before = _drive(sched, tcfg.vocab_size, mode == "paged")
+    ttransformer.backbone = seen_backbone
+    try:
+        ticks, steps_before = _drive(sched, tcfg.vocab_size, mode == "paged")
+    finally:
+        ttransformer.backbone = backbone
     if engine.host_executor is not None:
         engine.host_executor.close()
     return dict(sched=sched, engine=engine, ticks=ticks,
                 steps_before=steps_before, deltas=deltas, copies=copies,
-                probes=probes)
+                probes=probes, forwards=forwards)
 
 
 def _serve(mode):
@@ -497,9 +528,11 @@ def test_copy_bytes_match_stats_and_a_hand_count(runs):
 
 def test_prefill_forward_once_per_admission(runs):
     """One ``prefill_forward`` span per admitted request, inside its
-    tick's ``admission``, with the prompt's tokens and every layer's
-    expert table as its bytes; none where the prompt is segment-streamed
-    (its forward is the ``segment_stream`` spans)."""
+    tick's ``admission``, with the prompt's tokens and, as its reads and
+    bytes, the hand count of the forward it times: of every layer's E
+    experts, those ``cache.lookup`` finds resident before it from the
+    slots, the others from the host tier; none where the prompt is
+    segment-streamed (its forward is the ``segment_stream`` spans)."""
     mode, r = runs
     rec, sched = r["trec"], r["traced"]["sched"]
     spans = _engine_spans(rec, ("prefill_forward",))
@@ -508,18 +541,42 @@ def test_prefill_forward_once_per_admission(runs):
         return
     assert len(spans) == sched.stats.requests_submitted
     tiers = r["traced"]["engine"].tiers
-    L = tiers.host_w1.shape[0]
-    table = sum(h[0].numel() for h in tiers.host) * 2
+    expert = sum(h[0, 0].numel() for h in tiers.host) * 2
+    forwards = r["traced"]["forwards"]
+    assert len(forwards) == len(spans)
     admissions = [ev for ev in rec.events()
                   if ev.track == "sched" and ev.name == "admission"]
     prompts = sorted(len(p) for p, _ in _requests(
         r["traced"]["engine"].cfg.vocab_size, False))
     assert sorted(ev.args["tokens"] for ev in spans) == prompts
-    for ev in spans:
-        assert ev.args["h2d_bytes"] == L * table
+    for ev, ((resident, total), _) in zip(spans, forwards):
+        assert (ev.args["resident_experts"], ev.args["experts"]) == \
+            (resident, total)
+        assert ev.args["d2d_bytes"] == resident * expert
+        assert ev.args["h2d_bytes"] == (total - resident) * expert
         assert any(a.ts_ns <= ev.ts_ns and
                    ev.ts_ns + ev.dur_ns <= a.ts_ns + a.dur_ns
                    for a in admissions)
+
+
+def test_prefill_forward_reads_match_a_hand_count(runs):
+    """Every prefill forward (each admission's, or each streamed
+    segment's) adds to ``prefill_forward_resident`` /
+    ``prefill_forward_experts`` the experts ``cache.lookup`` finds
+    resident on the state before it and every layer's E; the run's
+    counters are their sums, and some reads came from the slots."""
+    mode, r = runs
+    forwards = r["traced"]["forwards"]
+    assert forwards
+    for i, (hand, counted) in enumerate(forwards):
+        assert counted == hand, f"forward {i}"
+    stats = r["traced"]["sched"].stats
+    resident, total = (sum(c) for c in zip(*(h for h, _ in forwards)))
+    assert (stats.prefill_forward_resident,
+            stats.prefill_forward_experts) == (resident, total)
+    assert 0 < resident < total
+    print(f"\n{mode}: {len(forwards)} forwards read {resident} of {total} "
+          f"experts from the slots")
 
 
 def test_host_execute_lies_inside_its_steps_dispatch(runs):
