@@ -5,16 +5,18 @@
         --seconds <s> --trace <0|1>
 
 Set-up (``setup_s``, from the process's start to the window's): imports,
-the weights drawn from the seed (expert tables into pinned host memory),
-the engine built, kernels loaded (built by nvcc in a fresh checkout),
-one warm-up request a slot at the mix's shortest prompt. The window: the
+the weights drawn from the seed by the configuration's reference module
+(``host_tier``, ``draw``: expert tables into pinned host memory), the
+engine built, kernels loaded (built by nvcc in a fresh checkout), one
+warm-up request a slot at the mix's shortest prompt. The window: the
 mix's closed-loop clients send requests from the seed's stream for
 ``--seconds``; every token's arrival is taken on the host clock in the
 request's ``on_token`` callback. With ``--trace 1`` the program's
 recorder and ``torch.profiler`` (CUDA activity) run over the window, the
 benchmark's wrappers record the grouped kernels' shapes, and the
 per-layer metrics are read. After the window: the device's memory peak,
-the program freed, the plain reference over every served request.
+the program freed, the plain reference over every served request, the
+pinned host tier freed.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
-from perfbench import check, devtrace, manifest, traffic
+from perfbench import check, devtrace, manifest, traffic, weights
 from perfbench.window import Served, end_to_end
 
 ROOT = manifest.ROOT
@@ -160,11 +162,11 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     """One run; returns the result dict (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, [``breakdown``], [``control``],
     ``numbers``, ``check``: the last). ``host``: expert tables to draw
-    into (``weights.host_tier``), made if None. ``control``: also the
-    control's numbers, the reference in float8 over the same prompts and
-    served tokens (``perfbench/limits.py``; never in a benchmark run)."""
+    into (the reference module's ``host_tier``); if None, made here and
+    freed once the check has read them. ``control``: also the control's
+    numbers, the reference in float8 over the same prompts and served
+    tokens (``perfbench/limits.py``; never in a benchmark run)."""
     import torch
-    from perfbench import weights
     t_start = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
     cfg = load_config(cell)
@@ -172,7 +174,10 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     system = manifest.module("systems", cfg["system"])
     reference = manifest.module("reference", cfg["reference"])
 
-    params = weights.draw(cfg, seed, dev, host=host)
+    own_host = host is None
+    if own_host:
+        host = reference.host_tier(cfg, pinned=dev.type == "cuda")
+    params = reference.draw(cfg, seed, dev, host=host)
     recorder = None
     if trace:
         from repro_torch.obs import TraceRecorder
@@ -259,6 +264,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
         result["control"] = check.numbers(check.control_gaps(logits, low))
         del low
     del logits, params
+    if own_host:
+        weights.release(host)
     result["correct"], shown = check.verdict(nums, cfg.get("limits", {}))
     result["numbers"] = nums
     result["check"] = shown
@@ -291,14 +298,20 @@ def _report_trace(devtr, r) -> None:
           f"{devtr.scale:.6f}", file=sys.stderr)
 
 
+BREAKDOWN_SPANS = (("sched", "tick"), ("sched", "admission"),
+                   ("sched", "decode+drain"), ("engine", "dispatch"),
+                   ("engine", "execute+drain"), ("engine", "warm_replay"),
+                   ("engine", "prefill_forward"), ("engine", "attn_route"),
+                   ("engine", "picks"), ("engine", "probe"),
+                   ("engine", "execute"), ("engine", "post_fetch"))
+
+
 def _breakdown(devtr, r) -> Dict:
+    """The device's longest operations, and its idle time by the shortest
+    host span open over each gap (a decode step's idle by its phase)."""
     ops = devtr.within(r.t0_ns, r.t1_ns)
     spans = {f"{track}:{name}": r.spans(track, name)
-             for track, name in (("sched", "tick"), ("sched", "admission"),
-                                 ("sched", "decode+drain"),
-                                 ("engine", "dispatch"),
-                                 ("engine", "execute+drain"),
-                                 ("engine", "warm_replay"))}
+             for track, name in BREAKDOWN_SPANS}
     return {"device_ops": devtrace.top_ops(ops),
             "idle_gaps": devtrace.label_gaps(
                 devtrace.idle_intervals(ops, r.t0_ns, r.t1_ns), spans)}

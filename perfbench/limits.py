@@ -45,7 +45,8 @@ def main(argv=None) -> int:
     torch.set_num_threads(harness.THREADS)
     cell = manifest.cell(manifest.load(), args.workload)
     cfg = harness.load_config(cell)
-    host = weights.host_tier(weights.Shapes.of(cfg), pinned=True)
+    reference = manifest.module("reference", cfg["reference"])
+    host = reference.host_tier(cfg, pinned=True)
     ctrl = {int(s) for s in args.control_seeds.split(",") if s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
             print(line, flush=True)
             f.write(line + "\n")
             f.flush()
+    weights.release(host)
     return 0
 
 

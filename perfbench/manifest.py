@@ -6,7 +6,8 @@ entry (``perfbench/configs/<config>.json``) under the mix
 by ``perfbench/metrics/<name>.py``; a configuration's ``system`` and
 ``reference`` keys name ``perfbench/systems/<system>.py`` (how the program
 is built and driven) and ``perfbench/reference/<reference>.py`` (its plain
-reference). Adding a model, a mix or a metric is adding files and entries.
+reference, and all that depends on its layer layout: ``REFERENCE_API``).
+Adding a model, a mix or a metric is adding files and entries.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 SOURCES_E2E = ("host_clock", "device_trace")
 SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
+# what a reference module gives the harness: the plain forward, the seeded
+# weights both sides share, the empty host tier they are drawn into, and
+# the model FLOPs of decode tokens
+REFERENCE_API = ("forward", "draw", "host_tier", "decode_flops")
 
 
 @dataclass(frozen=True)
@@ -89,8 +94,9 @@ def module(kind: str, name: str, root: Path = ROOT):
 def problems(bench: Dict, root: Path = ROOT) -> List[str]:
     """What in ``bench`` breaks the manifest's rules (empty if none): the
     keys, names, units and sources; every cell's files and every metric's
-    reader found by name; every ``moves`` an end-to-end metric that each
-    cell listing the per-layer metric reports."""
+    reader found by name; every reference module giving ``REFERENCE_API``;
+    every ``moves`` an end-to-end metric that each cell listing the
+    per-layer metric reports."""
     here = Path(root) / "perfbench"
     out: List[str] = []
     want = {"command", "paths", "run_seconds", "configs", "workloads",
@@ -123,6 +129,13 @@ def problems(bench: Dict, root: Path = ROOT) -> List[str]:
             key = "system" if kind == "systems" else "reference"
             if not (here / kind / f"{spec.get(key)}.py").is_file():
                 out.append(f"config {c['name']}: no {kind}/{spec.get(key)}.py")
+            elif kind == "reference":
+                ref = module(kind, spec[key], root)
+                lacks = [f for f in REFERENCE_API
+                         if not callable(getattr(ref, f, None))]
+                if lacks:
+                    out.append(f"config {c['name']}: reference/{spec[key]}.py "
+                               f"lacks {', '.join(lacks)}")
         for k in c["reduced"]:
             if not NAME.match(k):
                 out.append(f"config {c['name']}: bad reduced key {k!r}")

@@ -1,7 +1,8 @@
-"""Whole decode step: the model FLOPs of the window's decoded tokens (2 a
-active parameter, plus attention over the keys each saw) over the decode
-steps' wall time at the card's bf16 peak."""
-from perfbench import roofline
+"""Whole decode step: the model FLOPs of the window's decoded tokens (the
+configuration's reference module's ``decode_flops``: for attention + MoE,
+2 a active parameter plus attention over the keys each saw) over the
+decode steps' wall time at the card's bf16 peak."""
+from perfbench import manifest, roofline
 from perfbench.window import decode_positions
 
 
@@ -11,5 +12,6 @@ def read(r):
     if not steps or not keys:
         return None
     wall = sum(b - a for a, b in steps) / 1e9
-    return 100.0 * roofline.decode_flops(r.cfg, keys) / (
+    reference = manifest.module("reference", r.cfg["reference"])
+    return 100.0 * reference.decode_flops(r.cfg, keys) / (
         wall * roofline.BF16_FLOPS)

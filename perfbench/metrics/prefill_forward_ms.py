@@ -1,7 +1,8 @@
 """Engine: mean length of a ``prefill_forward`` span (an admission's padded
-prefill forward, every layer's expert table copied in, up to its routing
-reaching the host). A card's reading, as the other phase readers
-(``_phases.py``): None without a device trace."""
+prefill forward, up to its routing reaching the host: each layer's
+resident experts read from their slots in HBM, only the others copied in
+over PCIe from the pinned host tier). A card's reading, as the other
+phase readers (``_phases.py``): None without a device trace."""
 from perfbench.reading import mean_ms
 
 

@@ -28,6 +28,14 @@ prompt's own picks count against C. Decoded tokens run dropless.
 ``weights="fp8"`` is the control: every bf16 matrix (projections, experts,
 LM head) rounded to float8 e4m3 with one scale a output column, then used
 in float32.
+
+Besides ``forward``, a reference module gives the harness what depends on
+the configuration's layer layout: ``draw`` (the seeded weights both sides
+share), ``host_tier`` (the empty expert tables in host memory) and
+``decode_flops`` (the model FLOPs of decode tokens). Here they are the
+benchmark's attention + MoE layout (``perfbench/weights.py``,
+``perfbench/roofline.py``): every layer attention and an MoE, one
+``scan/s0`` slot with a leading [L] axis.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from perfbench import roofline, weights as layout
 
 FP8_MAX = 448.0          # largest finite float8 e4m3fn
 
@@ -178,3 +188,21 @@ def _forward(params, cfg, seqs, capacity, dev, weights, routes):
                      cfg["rms_norm_eps"])
             out.append(h @ head.t())
     return out
+
+
+def draw(cfg: Dict, seed: int, device,
+         host: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+    """Every weight of ``cfg`` from ``seed``, the expert tables in
+    ``host`` (made if None)."""
+    return layout.draw(cfg, seed, device, host=host)
+
+
+def host_tier(cfg: Dict, pinned: bool) -> Dict[str, torch.Tensor]:
+    """Empty expert tables [L, E, D, F] / [L, E, F, D], page-locked at their
+    exact size where ``pinned``."""
+    return layout.host_tier(layout.Shapes.of(cfg), pinned)
+
+
+def decode_flops(cfg: Dict, keys_seen) -> float:
+    """Model FLOPs of decode tokens that saw ``keys_seen`` keys each."""
+    return roofline.decode_flops(cfg, keys_seen)

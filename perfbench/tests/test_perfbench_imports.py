@@ -39,11 +39,33 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     assert not top_level_imports(path) & set(harness.FORBIDDEN)
 
 
+PLAIN = {"__future__", "typing", "numpy", "torch"}
+# the benchmark's own weight layout and work counts, which a reference module
+# draws and counts with; they import nothing of the program either
+YARDSTICK = {"perfbench.weights", "perfbench.roofline"}
+
+
+def imported_modules(path):
+    """Every module ``path`` imports, by its full name (``from perfbench
+    import weights``: ``perfbench.weights``)."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out |= ({f"{node.module}.{a.name}" for a in node.names}
+                    if node.module == "perfbench" else {node.module})
+    return out
+
+
 @pytest.mark.parametrize("path", sorted((PB / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
-    assert top_level_imports(path) <= {"__future__", "typing", "numpy",
-                                       "torch"}
+    names = imported_modules(path)
+    assert {n for n in names if n.split(".")[0] not in PLAIN} <= YARDSTICK
+    for y in names & YARDSTICK:
+        tops = top_level_imports(PB / f"{y.split('.')[1]}.py")
+        assert tops <= PLAIN | set(sys.stdlib_module_names), (y, tops)
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):

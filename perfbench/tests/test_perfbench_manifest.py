@@ -50,7 +50,7 @@ def test_problems_names_what_breaks(bad, why):
 
 def test_cells_of_the_issue_in_order():
     assert [w["name"] for w in BENCH["workloads"]] == [
-        "mixtral-8x7b-l24.chat1"]
+        "mixtral-8x7b-l24.chat1", "mixtral-8x7b-l24.docqa1"]
     assert {c["name"] for c in BENCH["configs"]} == {"mixtral-8x7b-l24"}
 
 

@@ -13,7 +13,9 @@ On a card the host tier is page-locked at its exact size by the CUDA
 runtime's ``cudaHostAlloc`` (the library the process already loaded):
 ``pin_memory=True`` would round each table up to a power of two of bytes,
 and the three 22.5 GB tables of 24 Mixtral layers would take 103 GB.
-The tables live until the process ends.
+A run gives them back (``release``) once its check has read them: left
+to the process's end, the 67.6 GB of 24 Mixtral layers took 13-20 s to
+tear down on the card's host, against 2.3 s for ``cudaFreeHost``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ def _norm(shape, g: torch.Generator, dev) -> torch.Tensor:
 
 CUDART = ("libcudart.so.12", "/usr/local/cuda/lib64/libcudart.so.12")
 HOST_ALLOC_PORTABLE = 1
+_LOCKED = set()          # addresses ``_page_locked`` allocated, not yet freed
 
 
 def _cudart():
@@ -94,7 +97,23 @@ def _page_locked(shape, dtype) -> torch.Tensor:
     t = torch.frombuffer(buf, dtype=dtype).view(shape)
     if not t.is_pinned():
         raise RuntimeError("the host tier is not page-locked")
+    _LOCKED.add(ptr.value)
     return t
+
+
+def release(tables: Dict[str, torch.Tensor]) -> None:
+    """Free the tables that ``_page_locked`` made (``cudaFreeHost``), once
+    nothing reads them again; any other table is left alone."""
+    mine = [t.data_ptr() for t in tables.values() if t.data_ptr() in _LOCKED]
+    if not mine:
+        return
+    torch.cuda.synchronize()
+    rt = _cudart()
+    for p in mine:
+        err = rt.cudaFreeHost(ctypes.c_void_p(p))
+        if err != 0:
+            raise RuntimeError(f"cudaFreeHost failed ({err})")
+        _LOCKED.discard(p)
 
 
 def host_tier(s: Shapes, pinned: bool) -> Dict[str, torch.Tensor]:
