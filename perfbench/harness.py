@@ -13,10 +13,10 @@ mix's closed-loop clients send requests from the seed's stream for
 ``--seconds``; every token's arrival is taken on the host clock in the
 request's ``on_token`` callback. With ``--trace 1`` the program's
 recorder and ``torch.profiler`` (CUDA activity) run over the window, the
-benchmark's wrappers record the grouped kernels' shapes, and the
-per-layer metrics are read. After the window: the device's memory peak,
-the program freed, the plain reference over every served request, the
-pinned host tier freed.
+benchmark's wrappers record the shapes of the kernel entry points the
+cell's readers declare, and the per-layer metrics are read. After the
+window: the device's memory peak, the program freed, the plain reference
+over every served request, the pinned host tier freed.
 """
 from __future__ import annotations
 
@@ -70,41 +70,46 @@ def load_config(cell: manifest.Cell) -> Dict:
 
 
 class KernelShapes:
-    """Wraps the grouped kernels' entry points to record each call's
-    (kernel, G, C, K, N, host time of the call in perf_counter ns) while
-    active; the program calls them through its module's globals, so the
-    wrappers sit in its path unchanged."""
+    """Wraps kernel entry points to record each call's (function, *shape,
+    host time of the call in perf_counter ns) while active, and puts the
+    functions back, with their ``launches`` counters, on leaving.
+    ``entry_points``: {module: {function: shape}} (``manifest.
+    entry_points``: what the cell's readers declare). The program calls
+    the entry points through its modules' globals, so the wrappers sit in
+    its path unchanged."""
 
-    NAMES = ("swiglu_gmm", "gmm")
-
-    def __init__(self):
+    def __init__(self, entry_points: Dict[str, Dict[str, Callable]]):
+        self.entry_points = entry_points
         self.calls = []
-        self._orig = {}
+        self._orig = []
 
     def __enter__(self):
-        from repro_torch.kernels.moe_gmm import ops
-        for name in self.NAMES:
-            fn = getattr(ops, name)
-            self._orig[name] = fn
-            setattr(ops, name, self._wrap(name, fn))
+        import importlib
+        for modname, fns in self.entry_points.items():
+            mod = importlib.import_module(modname)
+            for name, shape in fns.items():
+                fn = getattr(mod, name)
+                self._orig.append((mod, name, fn))
+                setattr(mod, name, self._wrap(name, fn, shape))
         return self
 
-    def _wrap(self, name: str, fn: Callable) -> Callable:
-        def wrapper(x, *ws):
-            G, C, K = x.shape
-            self.calls.append((name, G, C, K, ws[0].shape[2],
+    def _wrap(self, name: str, fn: Callable, shape: Callable) -> Callable:
+        def wrapper(*args, **kwargs):
+            self.calls.append((name, *shape(*args, **kwargs),
                                time.perf_counter_ns()))
-            return fn(x, *ws)
-        # the entry point counts its launches on the module's global name,
-        # which is the wrapper while it is in place
-        wrapper.launches = getattr(fn, "launches", 0)
+            return fn(*args, **kwargs)
+        # an entry point that counts its launches does so on the module's
+        # global name, which is the wrapper while it is in place
+        if hasattr(fn, "launches"):
+            wrapper.launches = fn.launches
         return wrapper
 
     def __exit__(self, *exc):
-        from repro_torch.kernels.moe_gmm import ops
-        for name, fn in self._orig.items():
-            fn.launches = getattr(ops, name).launches
-            setattr(ops, name, fn)
+        for mod, name, fn in reversed(self._orig):
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+        self._orig = []
 
 
 def _sync(device) -> None:
@@ -171,8 +176,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     cfg = load_config(cell)
     mix = traffic.load_mix(cell.traffic_file)
-    system = manifest.module("systems", cfg["system"])
-    reference = manifest.module("reference", cfg["reference"])
+    system = manifest.module("systems", cfg["system"], cell.root)
+    reference = manifest.module("reference", cfg["reference"], cell.root)
 
     own_host = host is None
     if own_host:
@@ -198,7 +203,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     stats0 = engine.stats
     events0 = len(recorder.events()) if recorder is not None else 0
     if trace:
-        shapes = KernelShapes().__enter__()
+        shapes = KernelShapes(manifest.entry_points(
+            cell.per_layer, cell.root)).__enter__()
     if trace and dev.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -226,7 +232,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                 "count": 1,
                 "memory_peak_bytes": (int(torch.cuda.max_memory_allocated(dev))
                                       if dev.type == "cuda" else 0)}
-    units = manifest.metric_units(manifest.load())
+    units = manifest.metric_units(manifest.load(cell.root))
     if trace:
         from perfbench.reading import Reading
         devtr = _device_trace(prof, marks) if prof is not None else None
@@ -234,8 +240,9 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                     t1=marks[-1][1] / 1e9 if marks else t_close,
                     served=served, events=recorder.events()[events0:],
                     stats0=stats0, stats1=stats1, device=devtr,
-                    kernel_calls=list(shapes.calls))
-        values = {name: manifest.reader(name)(r) for name in cell.per_layer}
+                    kernel_calls=list(shapes.calls), root=cell.root)
+        values = {name: manifest.reader(name, cell.root)(r)
+                  for name in cell.per_layer}
         if devtr is not None:
             _report_trace(devtr, r)
             dev_info["busy_s"] = devtrace.busy_ns(devtr.ops, r.t0_ns,
@@ -289,7 +296,7 @@ def _report_trace(devtr, r) -> None:
     ops = devtr.within(r.t0_ns, r.t1_ns)
     gmm = [o for o in ops if o.cat == "kernel" and
            any(k in o.name for k in gmm_roofline.KERNELS)]
-    calls = [c for c in r.kernel_calls if r.t0_ns <= c[5] <= r.t1_ns]
+    calls = r.calls(*gmm_roofline.KIND.values())
     matched, unmatched = gmm_roofline.pairs(calls, gmm)
     print(f"trace: {len(calls)} grouped-kernel calls and {len(gmm)} "
           f"grouped kernels in the window, {len(matched)} paired, "
@@ -298,23 +305,25 @@ def _report_trace(devtr, r) -> None:
           f"{devtr.scale:.6f}", file=sys.stderr)
 
 
-BREAKDOWN_SPANS = (("sched", "tick"), ("sched", "admission"),
-                   ("sched", "decode+drain"), ("engine", "dispatch"),
-                   ("engine", "execute+drain"), ("engine", "warm_replay"),
-                   ("engine", "prefill_forward"), ("engine", "attn_route"),
-                   ("engine", "picks"), ("engine", "probe"),
-                   ("engine", "execute"), ("engine", "post_fetch"))
+BREAKDOWN_TRACKS = ("sched", "engine")
 
 
 def _breakdown(devtr, r) -> Dict:
     """The device's longest operations, and its idle time by the shortest
-    host span open over each gap (a decode step's idle by its phase)."""
+    host span open over each gap (a decode step's idle by its phase):
+    every span the program opened on the scheduler's and the engine's
+    tracks in the window, by ``<track>:<name>``."""
     ops = devtr.within(r.t0_ns, r.t1_ns)
-    spans = {f"{track}:{name}": r.spans(track, name)
-             for track, name in BREAKDOWN_SPANS}
+    spans: Dict[str, List] = {}
+    for ev in r.events:
+        if (ev.kind == "X" and ev.track in BREAKDOWN_TRACKS
+                and r.t0_ns <= ev.ts_ns <= r.t1_ns):
+            spans.setdefault(f"{ev.track}:{ev.name}", []).append(
+                (ev.ts_ns, ev.ts_ns + ev.dur_ns))
     return {"device_ops": devtrace.top_ops(ops),
             "idle_gaps": devtrace.label_gaps(
-                devtrace.idle_intervals(ops, r.t0_ns, r.t1_ns), spans)}
+                devtrace.idle_intervals(ops, r.t0_ns, r.t1_ns),
+                {k: sorted(v) for k, v in spans.items()})}
 
 
 def check_lines(result: Dict) -> str:

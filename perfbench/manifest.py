@@ -7,7 +7,11 @@ by ``perfbench/metrics/<name>.py``; a configuration's ``system`` and
 ``reference`` keys name ``perfbench/systems/<system>.py`` (how the program
 is built and driven) and ``perfbench/reference/<reference>.py`` (its plain
 reference, and all that depends on its layer layout: ``REFERENCE_API``).
-Adding a model, a mix or a metric is adding files and entries.
+A reader may declare the kernel entry points whose calls it reads
+(``ENTRY_POINTS``: {module: {function: shape}}, ``entry_points``); the
+harness records their calls while the cell's traced window is open.
+Adding a model, a mix, a metric or a kernel's reader is adding files and
+entries.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -30,6 +34,19 @@ SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
 # the model FLOPs of decode tokens
 REFERENCE_API = ("forward", "draw", "host_tier", "decode_flops")
 
+# the contract's caps on cells
+MAX_CELLS = 24
+# a configuration's cuts (BENCHMARK.json's contract; model-configs guide
+# section 4): a width is never cut; a cut expert count keeps 8, a cut
+# vocabulary an eighth of the published one
+WIDTH_KEYS = frozenset({"hidden_size", "intermediate_size", "head_dim",
+                        "num_experts_per_tok"})
+WIDTH_PREFIX = "mamba_"      # every Mamba mixer size is a width
+EXPERT_COUNT_KEYS = ("num_local_experts", "num_experts", "n_routed_experts",
+                     "moe_num_experts")
+MIN_EXPERTS = 8
+MIN_VOCAB_SHARE = 8          # a cut vocabulary keeps 1/8 of the published
+
 
 @dataclass(frozen=True)
 class Cell:
@@ -41,6 +58,7 @@ class Cell:
     traffic_file: Path
     end_to_end: List[str]
     per_layer: List[str]
+    root: Path = ROOT            # the checkout its modules are found in
 
 
 def load(root: Path = ROOT) -> Dict:
@@ -66,7 +84,8 @@ def cell(bench: Dict, name: str, root: Path = ROOT) -> Cell:
                 end_to_end=[m["name"] for m in bench["end_to_end"]
                             if _applies(m, name)],
                 per_layer=[m["name"] for m in bench["per_layer"]
-                           if _applies(m, name)])
+                           if _applies(m, name)],
+                root=Path(root))
 
 
 def _load(path: Path):
@@ -91,12 +110,72 @@ def module(kind: str, name: str, root: Path = ROOT):
     return _load(Path(root) / "perfbench" / kind / f"{name}.py")
 
 
+def entry_points(metrics, root: Path = ROOT
+                 ) -> Dict[str, Dict[str, Callable]]:
+    """The union of the kernel entry points that the readers of
+    ``metrics`` declare: {module: {function: shape}}, where ``shape(*args,
+    **kwargs)`` gives the ints a reader's work count takes from a call.
+    An entry point two readers declare keeps the first one's shape."""
+    out: Dict[str, Dict[str, Callable]] = {}
+    for name in metrics:
+        mod = _load(Path(root) / "perfbench" / "metrics" / f"{name}.py")
+        for m, fns in getattr(mod, "ENTRY_POINTS", {}).items():
+            for fn, shape in fns.items():
+                out.setdefault(m, {}).setdefault(fn, shape)
+    return out
+
+
+def is_width(key: str) -> bool:
+    """A width: the hidden, intermediate and head sizes, the experts per
+    token, and any Mamba mixer size."""
+    return key in WIDTH_KEYS or key.startswith(WIDTH_PREFIX)
+
+
+def cut_problems(name: str, reduced: List[str], spec: Dict) -> List[str]:
+    """What in a configuration's cut breaks the rules: the entry's
+    ``reduced`` is the file's; the file's ``published`` holds the source's
+    value of each reduced key and of no other; no width is reduced, nor
+    changed inside a reduced group; a reduced expert count keeps
+    ``MIN_EXPERTS``, a reduced vocabulary 1/``MIN_VOCAB_SHARE`` of the
+    published one."""
+    out: List[str] = []
+    pre = f"config {name}:"
+    if list(reduced) != list(spec.get("reduced", [])):
+        out.append(f"{pre} reduced {reduced} differs from its file's "
+                   f"{spec.get('reduced', [])}")
+    published = spec.get("published", {})
+    if set(published) != set(reduced):
+        out.append(f"{pre} published {sorted(published)} is not the "
+                   f"reduced keys {sorted(reduced)}")
+    for k in reduced:
+        if is_width(k):
+            out.append(f"{pre} reduces the width {k}")
+        if k not in published:
+            continue
+        have, was = spec.get(k), published[k]
+        if isinstance(was, dict):
+            for kk, v in was.items():
+                if is_width(kk) and (have or {}).get(kk) != v:
+                    out.append(f"{pre} changes the width {k}.{kk}")
+        elif k in EXPERT_COUNT_KEYS and not (
+                isinstance(have, int) and have >= MIN_EXPERTS):
+            out.append(f"{pre} keeps {have} experts of {was} (at least "
+                       f"{MIN_EXPERTS})")
+        elif k == "vocab_size" and not (
+                isinstance(have, int) and have * MIN_VOCAB_SHARE >= was):
+            out.append(f"{pre} keeps a vocabulary of {have} of {was} (at "
+                       f"least 1/{MIN_VOCAB_SHARE})")
+    return out
+
+
 def problems(bench: Dict, root: Path = ROOT) -> List[str]:
     """What in ``bench`` breaks the manifest's rules (empty if none): the
-    keys, names, units and sources; every cell's files and every metric's
-    reader found by name; every reference module giving ``REFERENCE_API``;
-    every ``moves`` an end-to-end metric that each cell listing the
-    per-layer metric reports."""
+    keys, names, units and sources; the caps on cells and on 4-chip
+    cells; every configuration's cut (``cut_problems``); every cell's
+    files and every metric's reader found by name, and what a reader
+    declares of ``ENTRY_POINTS``; every reference module giving
+    ``REFERENCE_API``; every ``moves`` an end-to-end metric that each cell
+    listing the per-layer metric reports."""
     here = Path(root) / "perfbench"
     out: List[str] = []
     want = {"command", "paths", "run_seconds", "configs", "workloads",
@@ -106,6 +185,15 @@ def problems(bench: Dict, root: Path = ROOT) -> List[str]:
         return out
     if not 1 <= int(bench["run_seconds"]) <= 51:
         out.append("run_seconds outside 1..51")
+    if not 1 <= len(bench["workloads"]) <= MAX_CELLS:
+        out.append(f"workloads: {len(bench['workloads'])} entries (1 to "
+                   f"{MAX_CELLS})")
+    # 4-chip cells: a quarter of the cells, rounded down, or one
+    four = sum(w["chips"] == 4 for w in bench["workloads"])
+    cap = max(len(bench["workloads"]) // 4, 1)
+    if four > cap:
+        out.append(f"workloads: {four} cells on 4 chips, over the cap of "
+                   f"{cap}")
     names = {}
     for kind in ("configs", "workloads", "end_to_end", "per_layer"):
         for e in bench[kind]:
@@ -139,6 +227,7 @@ def problems(bench: Dict, root: Path = ROOT) -> List[str]:
         for k in c["reduced"]:
             if not NAME.match(k):
                 out.append(f"config {c['name']}: bad reduced key {k!r}")
+        out += cut_problems(c["name"], c["reduced"], spec)
         if spec.get("source") != c["source"]:
             out.append(f"config {c['name']}: source differs from its file")
     pairs = set()
@@ -187,6 +276,15 @@ def problems(bench: Dict, root: Path = ROOT) -> List[str]:
             out.append(f"per_layer {m['name']}: source {m['source']}")
         if not (here / "metrics" / f"{m['name']}.py").is_file():
             out.append(f"per_layer {m['name']}: no metrics/{m['name']}.py")
+        else:
+            eps = getattr(_load(here / "metrics" / f"{m['name']}.py"),
+                          "ENTRY_POINTS", {})
+            if not (isinstance(eps, dict) and all(
+                    isinstance(fns, dict) and all(callable(f) for f in
+                                                  fns.values())
+                    for fns in eps.values())):
+                out.append(f"per_layer {m['name']}: ENTRY_POINTS is not "
+                           f"{{module: {{function: shape}}}}")
         mv = e2e.get(m["moves"])
         if mv is None:
             out.append(f"per_layer {m['name']}: moves unknown {m['moves']}")

@@ -12,6 +12,6 @@ def read(r):
     if not steps or not keys:
         return None
     wall = sum(b - a for a, b in steps) / 1e9
-    reference = manifest.module("reference", r.cfg["reference"])
+    reference = manifest.module("reference", r.cfg["reference"], r.root)
     return 100.0 * reference.decode_flops(r.cfg, keys) / (
         wall * roofline.BF16_FLOPS)

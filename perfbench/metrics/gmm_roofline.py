@@ -16,21 +16,33 @@ SWIGLU_ARG = re.compile(r"<\s*\d+\s*,\s*(true|false)\b")
 KIND = {"true": "swiglu_gmm", "false": "gmm"}
 
 
+def _shape(x, *ws):
+    """(G, C, K, N) of x [G, C, K] and the first weight [G, K, N]."""
+    G, C, K = x.shape
+    return G, C, K, ws[0].shape[2]
+
+
+# the calls the harness records for this reader: (kernel, G, C, K, N, ns)
+ENTRY_POINTS = {"repro_torch.kernels.moe_gmm.ops": {"swiglu_gmm": _shape,
+                                                    "gmm": _shape}}
+
+
 def kind(kernel_name: str):
     m = SWIGLU_ARG.search(kernel_name)
     return KIND[m.group(1)] if m else None
 
 
 def pairs(calls, kernels):
-    """([(call, kernel)], unmatched): per kind, in launch order."""
+    """([(call, kernel)], unmatched): per kind, in launch order; a call's
+    host time is its last item."""
     out, unmatched = [], 0
     for k in KIND.values():
-        cs = sorted((c for c in calls if c[0] == k), key=lambda c: c[5])
+        cs = sorted((c for c in calls if c[0] == k), key=lambda c: c[-1])
         ks = sorted((o for o in kernels if kind(o.name) == k),
                     key=lambda o: o.t0)
         i = j = 0
         while i < len(cs) and j < len(ks):
-            if ks[j].t0 < cs[i][5]:
+            if ks[j].t0 < cs[i][-1]:
                 unmatched += 1
                 j += 1
                 continue
@@ -42,11 +54,11 @@ def pairs(calls, kernels):
 
 
 def read(r):
-    if r.device is None or not r.kernel_calls:
+    calls = r.calls(*KIND.values())
+    if r.device is None or not calls:
         return None
     ops = [o for o in r.device.within(r.t0_ns, r.t1_ns)
            if o.cat == "kernel" and any(k in o.name for k in KERNELS)]
-    calls = [c for c in r.kernel_calls if r.t0_ns <= c[5] <= r.t1_ns]
     matched, _ = pairs(calls, ops)
     if not matched:
         return None

@@ -5,9 +5,11 @@ where the run holds nothing for it to read, and the metric is left out).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 from perfbench.devtrace import DeviceTrace
+from perfbench.manifest import ROOT
 from perfbench.window import Served
 
 
@@ -21,7 +23,10 @@ class Reading:
     stats0: Any                  # the engine's counters at the window's
     stats1: Any                  # start and at its end
     device: Optional[DeviceTrace]   # the profiler's device operations
-    kernel_calls: List[Tuple[str, int, int, int, int]]  # (kernel, G, C, K, N)
+    # the declared entry points' calls (``harness.KernelShapes``), in call
+    # order: (function, *shape, host perf_counter ns of the call)
+    kernel_calls: List[Tuple]
+    root: Path = ROOT            # the checkout the cell's modules are in
 
     @property
     def t0_ns(self) -> int:
@@ -45,6 +50,12 @@ class Reading:
             if self.t0_ns <= ev.ts_ns <= self.t1_ns:
                 out.append((ev.ts_ns, ev.ts_ns + ev.dur_ns))
         return sorted(out)
+
+    def calls(self, *names: str) -> List[Tuple]:
+        """The recorded calls of the entry points ``names`` made inside
+        the window, in call order."""
+        return [c for c in self.kernel_calls
+                if c[0] in names and self.t0_ns <= c[-1] <= self.t1_ns]
 
     def decode_steps(self) -> List[Tuple[int, int]]:
         """The scheduler's decode steps: the engine's step and the tokens

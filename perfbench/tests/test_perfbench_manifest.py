@@ -48,19 +48,122 @@ def test_problems_names_what_breaks(bad, why):
     assert any(why in p for p in manifest.problems(bench))
 
 
+# the cells accepted so far, in the order they were added; a later cell
+# may stand anywhere, and taking one away is a benchmark PR's to do here
+ACCEPTED = ("mixtral-8x7b-l24.chat1", "mixtral-8x7b-l24.docqa1")
+ACCEPTED_CONFIGS = ("mixtral-8x7b-l24",)
+
+
+def keeps_accepted(bench) -> bool:
+    """Every accepted cell and configuration is there, the cells in their
+    order; others may stand between and around them."""
+    names = iter(w["name"] for w in bench["workloads"])
+    return all(a in names for a in ACCEPTED) and \
+        set(ACCEPTED_CONFIGS) <= {c["name"] for c in bench["configs"]}
+
+
 def test_cells_of_the_issue_in_order():
-    assert [w["name"] for w in BENCH["workloads"]] == [
-        "mixtral-8x7b-l24.chat1", "mixtral-8x7b-l24.docqa1"]
-    assert {c["name"] for c in BENCH["configs"]} == {"mixtral-8x7b-l24"}
+    assert keeps_accepted(BENCH)
+    for w in ACCEPTED:
+        assert manifest.cell(BENCH, w).config == "mixtral-8x7b-l24"
+        assert manifest.cell(BENCH, w).chips == 1
+    # the guard holds with another cell added anywhere, and fails with
+    # an accepted one gone or two out of their order
+    bench = json.loads(json.dumps(BENCH))
+    bench["workloads"].insert(1, dict(bench["workloads"][0], name="x.y"))
+    assert keeps_accepted(bench)
+    bench = json.loads(json.dumps(BENCH))
+    bench["workloads"] = [w for w in bench["workloads"]
+                          if w["name"] != ACCEPTED[1]]
+    assert not keeps_accepted(bench)
+    bench = json.loads(json.dumps(BENCH))
+    bench["workloads"].reverse()
+    assert not keeps_accepted(bench)
 
 
 def test_config_files_keep_published_widths():
     for c in BENCH["configs"]:
         cfg = json.loads((manifest.ROOT / c["file"]).read_text())
-        assert cfg["reduced"] == c["reduced"] == ["num_hidden_layers"]
+        assert manifest.cut_problems(c["name"], c["reduced"], cfg) == []
+        assert cfg["reduced"] == c["reduced"]
         assert set(cfg["published"]) == set(c["reduced"])
-        assert cfg["hidden_size"] == 4096 and cfg["head_dim"] == 128
-        assert cfg["num_experts_per_tok"] == 2
+        assert not any(manifest.is_width(k) for k in c["reduced"])
+    # Mixtral's own widths, and only its depth cut
+    c = next(c for c in BENCH["configs"] if c["name"] == "mixtral-8x7b-l24")
+    cfg = json.loads((manifest.ROOT / c["file"]).read_text())
+    assert cfg["reduced"] == c["reduced"] == ["num_hidden_layers"]
+    assert cfg["published"] == {"num_hidden_layers": 32}
+    assert cfg["hidden_size"] == 4096 and cfg["head_dim"] == 128
+    assert cfg["intermediate_size"] == 14336
+    assert cfg["num_experts_per_tok"] == 2
+
+
+MIXTRAL = json.loads((manifest.ROOT / "perfbench/configs/"
+                      "mixtral-8x7b-l24.json").read_text())
+
+
+def cut(reduced, published, **values):
+    return dict(MIXTRAL, reduced=list(reduced), published=published,
+                **values)
+
+
+@pytest.mark.parametrize("reduced, spec, why", [
+    (["num_hidden_layers"], cut([], {}), "differs from its file"),
+    (["num_hidden_layers"], cut(["num_hidden_layers"], {}), "published"),
+    (["num_hidden_layers"],
+     cut(["num_hidden_layers"], {"num_hidden_layers": 32, "vocab_size": 1}),
+     "published"),
+    (["hidden_size"], cut(["hidden_size"], {"hidden_size": 8192}),
+     "width hidden_size"),
+    (["head_dim"], cut(["head_dim"], {"head_dim": 256}), "width head_dim"),
+    (["num_experts_per_tok"],
+     cut(["num_experts_per_tok"], {"num_experts_per_tok": 8}),
+     "width num_experts_per_tok"),
+    (["mamba_d_state"], cut(["mamba_d_state"], {"mamba_d_state": 32}),
+     "width mamba_d_state"),
+    (["intermediate_size"],
+     cut(["intermediate_size"], {"intermediate_size": 28672}),
+     "width intermediate_size"),
+    (["num_local_experts"],
+     cut(["num_local_experts"], {"num_local_experts": 16},
+         num_local_experts=4), "experts"),
+    (["vocab_size"], cut(["vocab_size"], {"vocab_size": 65536},
+                         vocab_size=8191), "vocabulary"),
+    (["cache"], cut(["cache"], {"cache": dict(MIXTRAL["cache"],
+                                              head_dim=64)}),
+     "width cache.head_dim"),
+])
+def test_cut_problems_names_what_breaks(reduced, spec, why):
+    found = manifest.cut_problems("m", reduced, spec)
+    assert any(why in p for p in found), found
+
+
+@pytest.mark.parametrize("reduced, spec", [
+    (["num_hidden_layers"], MIXTRAL),
+    (["num_local_experts", "vocab_size"],
+     cut(["num_local_experts", "vocab_size"],
+         {"num_local_experts": 64, "vocab_size": 65536},
+         num_local_experts=8, vocab_size=8192)),
+    ([], cut([], {})),
+])
+def test_cut_problems_let_a_chips_share_stand(reduced, spec):
+    """A depth cut, the chip's share of the experts and the vocabulary at
+    their floors, and no cut at all keep the rules."""
+    assert manifest.cut_problems("m", reduced, spec) == []
+
+
+@pytest.mark.parametrize("cells, four, ok", [
+    (3, 1, True), (4, 1, True), (7, 1, True), (7, 2, False), (8, 2, True),
+    (25, 0, False)])
+def test_problems_cap_cells_and_four_chip_cells(cells, four, ok):
+    bench = json.loads(json.dumps(BENCH))
+    base = bench["workloads"][0]
+    bench["workloads"] = [
+        dict(base, name=f"mixtral-8x7b-l24.t{i}", traffic=f"t{i}",
+             chips=4 if i < four else 1) for i in range(cells)]
+    found = [p for p in manifest.problems(bench)
+             if "entries" in p or "4 chips" in p]
+    assert (found == []) is ok, found
 
 
 def test_a_new_model_mix_and_metric_are_files_and_entries(tmp_path):
