@@ -41,9 +41,12 @@ wait for the last copy into layer l's slots before its staging reads them;
 copy ends; (d) on the CPU there is no stream and copies are synchronous.
 
 The engine's prefill forward reads the tiers as well
-(:func:`forward_experts`): each layer's whole [E, ...] table, resident
-experts copied from their slots and the rest from the host tier, with the
-cache state and the slots only read, and under the same ordering (b).
+(:class:`ForwardExperts`): each layer's whole [E, ...] table, resident
+experts copied from their slots on the compute stream and the rest from
+the host tier on the copy stream, queued one layer ahead, so layer l+1's
+misses cross PCIe while layer l computes. The cache state and the slots
+are only read, under the same ordering (a), (b) and (d); the compute
+stream waits for a layer's host copies before it reads its table.
 
 Tiers: ``host_*`` [L, E, D, F|F, D] in host memory (pinned on a GPU), the
 slot buffers ``slot_*`` [N*M, D, F|F, D] on the compute device, updated IN
@@ -271,9 +274,75 @@ def _stage_group_weights(tiers: ExpertTiers, layer: int, pr: ProbeResult,
                                            device))
 
 
+class _Reads(NamedTuple):
+    """One layer's expert table while its host-tier reads are in flight."""
+    layer: int
+    table: Tuple[torch.Tensor, ...]     # w1, w3 [E, D, F], w2 [E, F, D]
+    ways: List[int]                     # each expert's way; -1: the host's
+    done: Optional[torch.cuda.Event]    # the host reads' end (CPU: None)
+
+
+def _empty_table(tiers: ExpertTiers) -> Tuple[torch.Tensor, ...]:
+    E = tiers.host_w1.shape[1]
+    return tuple(torch.empty((E,) + tuple(s.shape[1:]), dtype=s.dtype,
+                             device=s.device) for s in tiers.slots)
+
+
+def _read_host(tiers: ExpertTiers, layer: int,
+               table: Tuple[torch.Tensor, ...]) -> _Reads:
+    """Queue ``layer``'s non-resident experts host->device into their rows
+    of ``table``: on the copy stream, after the compute stream's work so
+    far, which covers every earlier read of ``table``'s memory (a); on the
+    CPU, synchronously (d). Residency is
+    :func:`~repro_torch.core.cache.lookup` on the state as it stands."""
+    E = tiers.host_w1.shape[1]
+    hit, way = cache_lib.lookup(tiers.state, layer,
+                                torch.arange(E, dtype=torch.int32))
+    ways = torch.where(hit, way, -1).tolist()
+    misses = [e for e, w in enumerate(ways) if w < 0]
+    stream = tiers.copy.stream
+    if stream is None:
+        for e in misses:
+            for buf, host in zip(table, tiers.host):
+                buf[e].copy_(host[layer, e])
+        return _Reads(layer, table, ways, None)
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        for e in misses:
+            for buf, host in zip(table, tiers.host):
+                buf[e].copy_(host[layer, e], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return _Reads(layer, table, ways, done)
+
+
+def _settle(reads: Optional[_Reads]) -> None:
+    """The compute stream waits for ``reads``' host copies: whatever it
+    queues next, a read of the table or an allocation over its memory once
+    freed, comes after them."""
+    if reads is not None and reads.done is not None:
+        torch.cuda.current_stream(reads.table[0].device).wait_event(
+            reads.done)
+
+
+def _read_slots(tiers: ExpertTiers, reads: _Reads, ccfg: CacheConfig
+                ) -> Tuple[torch.Tensor, ...]:
+    """On the compute stream: wait for the layer's last slot write (b) and
+    for its host reads, then copy each resident expert from its slot."""
+    tiers.copy.wait(reads.layer)
+    _settle(reads)
+    for e, way in enumerate(reads.ways):
+        if way >= 0:
+            src = cache_lib.slot_id(reads.layer, way, ccfg.num_ways)
+            for buf, slot in zip(reads.table, tiers.slots):
+                buf[e].copy_(slot[src])
+    return reads.table
+
+
 def forward_experts(tiers: ExpertTiers, layer: int, ccfg: CacheConfig
                     ) -> Tuple[Tuple[torch.Tensor, ...], int]:
-    """A prefill forward's expert table of ``layer``: (w1, w3 [E, D, F],
+    """One layer's prefill expert table on its own (a forward reads its
+    layers through :class:`ForwardExperts`, one ahead): (w1, w3 [E, D, F],
     w2 [E, F, D]) on the slot buffer's device, and how many of the E
     experts were read from their slots. A resident expert is copied from
     its slot, every other one host->device from the pinned tier; layers
@@ -281,16 +350,65 @@ def forward_experts(tiers: ExpertTiers, layer: int, ccfg: CacheConfig
     :func:`~repro_torch.core.cache.lookup` on the state as it stands, not
     landed, so a PENDING reservation (its copy may still be in flight)
     reads from the host. Only reads: the cache state and the slots are
-    left as they are. The compute stream first waits for the layer's last
-    slot write (b); a later slot write waits for these reads (a)."""
-    tiers.copy.wait(layer)
-    E = tiers.host_w1.shape[1]
-    hit, way = cache_lib.lookup(tiers.state, layer,
-                                torch.arange(E, dtype=torch.int32))
-    ways = torch.where(hit, way, -1).tolist()
-    table = _gather_experts(tiers, layer, list(range(E)), ways, ccfg,
-                            tiers.slot_w1.device)
-    return tuple(table), int(hit.sum())
+    left as they are."""
+    reads = _read_host(tiers, layer, _empty_table(tiers))
+    table = _read_slots(tiers, reads, ccfg)
+    return table, sum(w >= 0 for w in reads.ways)
+
+
+class ForwardExperts:
+    """One prefill forward's expert source (one ``backbone`` call; close it
+    when the call returns). :meth:`read` hands a MoE layer its table, as
+    :func:`forward_experts` reads it, and first queues the next layer's
+    host-tier reads on the copy stream, so that layer l+1's misses cross
+    PCIe while layer l computes; layer 0's are queued when the source is
+    made, before the forward's embedding. Two tables in turn: layer l+1's
+    reads go into the one layer l-1 read, and queue after the compute
+    stream's work so far, which holds every read of it (a); the compute
+    stream waits for a layer's reads before its first read of the table.
+    Residency is taken from the state as it stands when a layer's reads
+    are queued; a forward neither commits nor lands, so it is the state
+    the layer would find. Never carry a source from one forward into the
+    next: the warming replay changes the cache in between. On the CPU the
+    reads are synchronous (d)."""
+
+    def __init__(self, tiers: ExpertTiers, ccfg: CacheConfig):
+        self.tiers, self.ccfg = tiers, ccfg
+        self.num_layers = tiers.host_w1.shape[0]
+        self._tables: List[Optional[Tuple[torch.Tensor, ...]]] = [None, None]
+        self._turn = 0
+        self._next: Optional[_Reads] = self._issue(0)
+
+    def _issue(self, layer: int) -> _Reads:
+        t = self._turn
+        self._turn ^= 1
+        if self._tables[t] is None:
+            self._tables[t] = _empty_table(self.tiers)
+        return _read_host(self.tiers, layer, self._tables[t])
+
+    def read(self, layer: int) -> Tuple[Tuple[torch.Tensor, ...], int, int]:
+        """``layer``'s table (valid until the layer after next is read),
+        how many of its experts came from their slots, and how many of the
+        others were queued before this call (all, unless the forward
+        skipped a layer). Queues ``layer + 1``'s reads, if there is one."""
+        reads, self._next = self._next, None
+        ahead = reads is not None and reads.layer == layer
+        if not ahead:
+            _settle(reads)
+            reads = self._issue(layer)
+        if layer + 1 < self.num_layers:
+            self._next = self._issue(layer + 1)
+        table = _read_slots(self.tiers, reads, self.ccfg)
+        misses = sum(w < 0 for w in reads.ways)
+        return table, len(reads.ways) - misses, misses if ahead else 0
+
+    def close(self) -> None:
+        """The compute stream waits for reads of a layer the forward did
+        not reach, so the tables go back to the allocator with no copy
+        still writing them; then they go."""
+        _settle(self._next)
+        self._next = None
+        self._tables = [None, None]
 
 
 def _stage_dispatch(x: torch.Tensor, K: int, pr: ProbeResult,

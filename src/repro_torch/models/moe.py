@@ -7,14 +7,14 @@ engine's prefill forward, every forward of the generic path's MoE layers
 the Switch load-balance loss); the engine's decode step runs the two-tier
 execution of :mod:`repro_torch.core.collaborative`. The engine's forward
 gives :func:`moe_apply` its own source of the layer's table
-(:func:`repro_torch.core.collaborative.forward_experts`: resident experts
-from the cache's slots, the rest from the host tier); every other caller
-reads the layer's own tables (:func:`_experts`). The expert products
-here are plain large matrix products (the reference leaves them to XLA
-einsums), differentiable through the dispatch's gathers and scatters and
-the combine weights, so the router trains. A layer with shared experts
-(``p["shared"]``, a dense SwiGLU FFN of ``num_shared_experts`` x d_ff)
-adds their output to the routed one.
+(:class:`repro_torch.core.collaborative.ForwardExperts`: resident experts
+from the cache's slots, the rest from the host tier, a layer ahead);
+every other caller reads the layer's own tables (:func:`_experts`). The
+expert products here are plain large matrix products (the reference
+leaves them to XLA einsums), differentiable through the dispatch's
+gathers and scatters and the combine weights, so the router trains. A
+layer with shared experts (``p["shared"]``, a dense SwiGLU FFN of
+``num_shared_experts`` x d_ff) adds their output to the routed one.
 """
 from __future__ import annotations
 

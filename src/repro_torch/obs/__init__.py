@@ -29,7 +29,8 @@ expert-table reads from the slots and from the host tier, and their
 bytes). The decode bytes accumulate in ``EngineStats``' copy channel
 (``stage_d2d_bytes``, ``stage_h2d_bytes``, ``slot_d2d_bytes``,
 ``slot_h2d_bytes``), the forwards' reads in ``prefill_forward_resident``
-/ ``prefill_forward_experts``; the host lane's ``host_execute`` span
+/ ``prefill_forward_experts`` / ``prefill_forward_ahead`` (the span's
+``ahead_experts``); the host lane's ``host_execute`` span
 bounds where its pool ran in the step.
 """
 from .metrics import LogHistogram

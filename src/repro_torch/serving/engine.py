@@ -75,15 +75,18 @@ bytes) and, with prefetch, ``prefetch``. The copy bytes accumulate in
 :class:`EngineStats` (``stage_*_bytes``, ``slot_*_bytes``). Each padded
 admission forward gets a ``prefill_forward`` span (args: ``tokens``, the
 expert reads ``resident_experts`` of ``experts`` and their bytes,
-``d2d_bytes`` from the slots and ``h2d_bytes`` from the host tier).
+``d2d_bytes`` from the slots and ``h2d_bytes`` from the host tier, and
+``ahead_experts``).
 
 Every prefill forward (the padded one, each streamed segment, the static
-batch's) reads its MoE layers' expert tables through the tiers
-(:func:`repro_torch.core.collaborative.forward_experts`): each expert
-resident in the cache is copied from its HBM slot, and only the others
-cross PCIe from the pinned host tier. It only reads the cache and the
-slots. ``EngineStats.prefill_forward_resident`` /
-``prefill_forward_experts`` count those reads.
+batch's) reads its MoE layers' expert tables through the tiers, with a
+source of its own (:class:`repro_torch.core.collaborative.ForwardExperts`):
+each expert resident in the cache is copied from its HBM slot, and only
+the others cross PCIe from the pinned host tier, on the tiers' copy
+stream, queued one layer ahead (layer l+1's while layer l computes; layer
+0's before the embedding). It only reads the cache and the slots.
+``EngineStats.prefill_forward_resident`` / ``prefill_forward_experts`` /
+``prefill_forward_ahead`` count those reads.
 
 Differences from the reference, all in how, never in what: the cache
 state, its bookkeeping and the page tables live on the host; KV caches,
@@ -370,7 +373,8 @@ class CollaborativeEngine:
             "prefill_fetched": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "first_tokens": 0, "prefill_segments": 0,
             "prefix_tokens_skipped": 0, **dict.fromkeys(COPY_KEYS, 0),
-            "prefill_forward_resident": 0, "prefill_forward_experts": 0}
+            "prefill_forward_resident": 0, "prefill_forward_experts": 0,
+            "prefill_forward_ahead": 0}
         self._per_layer_hits = np.zeros(L, np.int64)
         self._per_layer_accesses = np.zeros(L, np.int64)
         self._expert_bytes = collab.expert_bytes(self.tiers)
@@ -695,28 +699,40 @@ class CollaborativeEngine:
         """Full-prompt forward over tokens [B, capacity] (prompt
         left-aligned, zero-padded). Returns (logits at position plen-1
         [B, 1, V], decode state with pos = plen, trace | None)."""
-        x, state, trace = transformer.backbone(
-            self.params, tokens, self.cfg, "prefill", want_trace=want_trace,
-            expert_source=self._forward_experts)
+        x, state, trace = self._forward(tokens, "prefill",
+                                        want_trace=want_trace)
         logits = transformer.lm_logits(self.params, x[:, plen - 1:plen],
                                        self.cfg)
         state = {"scan": state["scan"],
                  "pos": torch.tensor(plen, dtype=torch.int32)}
         return logits, state, (trace["scan"]["s0"] if want_trace else None)
 
-    def _forward_experts(self, layer: int):
-        """A prefill forward's expert source: the layer's table with each
-        resident expert read from its slot, the rest from the host tier
-        (:func:`collab.forward_experts`); counts the reads."""
-        table, resident = collab.forward_experts(self.tiers, layer,
-                                                 self.ecfg.cache)
-        self._counters["prefill_forward_resident"] += resident
-        self._counters["prefill_forward_experts"] += table[0].shape[0]
-        return table
-
-    def _forward_reads(self) -> Tuple[int, int]:
+    def _forward(self, tokens: torch.Tensor, mode: str, **kw):
+        """One prefill forward (``transformer.backbone`` in ``mode``) with
+        an expert source of its own (:class:`collab.ForwardExperts`), made
+        before the call and closed when it returns: each layer's table
+        with each resident expert read from its slot, the rest from the
+        host tier, queued a layer ahead; counts the reads."""
+        reads = collab.ForwardExperts(self.tiers, self.ecfg.cache)
         c = self._counters
-        return c["prefill_forward_resident"], c["prefill_forward_experts"]
+
+        def source(layer: int):
+            table, resident, ahead = reads.read(layer)
+            c["prefill_forward_resident"] += resident
+            c["prefill_forward_experts"] += table[0].shape[0]
+            c["prefill_forward_ahead"] += ahead
+            return table
+
+        try:
+            return transformer.backbone(self.params, tokens, self.cfg, mode,
+                                        expert_source=source, **kw)
+        finally:
+            reads.close()
+
+    def _forward_reads(self) -> Tuple[int, int, int]:
+        c = self._counters
+        return (c["prefill_forward_resident"], c["prefill_forward_experts"],
+                c["prefill_forward_ahead"])
 
     def _check_prompt_len(self, P: int) -> None:
         cap = self.ecfg.capacity
@@ -760,11 +776,10 @@ class CollaborativeEngine:
         Returns (logits at ``plen - 1`` clamped into the segment, scan
         state, new pos clamped to plen, warm stats | None)."""
         C = tokens.shape[1]
-        x, new_state, trace = transformer.backbone(
-            self.params, tokens, self.cfg, "segment", want_trace=warm,
+        x, new_state, trace = self._forward(
+            tokens, "segment", want_trace=warm,
             state={"scan": scan_state, "pos": pos0}, pages=pages,
-            kv_write_min=wmin, kv_write_max=plen,
-            expert_source=self._forward_experts)
+            kv_write_min=wmin, kv_write_max=plen)
         rel = min(max(plen - 1 - pos0, 0), C - 1)
         logits = transformer.lm_logits(self.params, x[:, rel:rel + 1],
                                        self.cfg)
@@ -1209,22 +1224,24 @@ class CollaborativeEngine:
                 obs.complete("engine", name, row[i], row[i + 1], args)
 
     def _obs_prefill_forward(self, t0: int, t1: int, tokens: int,
-                             reads0: Tuple[int, int]) -> None:
+                             reads0: Tuple[int, int, int]) -> None:
         """Drain point: the admission's padded prefill forward, from
         before its launch to its routing reaching the host. On the bypass
         path (``chunk == 0``) no routing is read, and the span times the
         launches only. ``reads0``: :meth:`_forward_reads` before it. Args:
-        the expert tables' reads, ``resident_experts`` of ``experts``, and
-        the bytes they copied, ``d2d_bytes`` from the slots and
-        ``h2d_bytes`` from the host tier."""
-        resident, total = (b - a for a, b in zip(reads0,
-                                                 self._forward_reads()))
+        the expert tables' reads, ``resident_experts`` of ``experts``, the
+        bytes they copied, ``d2d_bytes`` from the slots and ``h2d_bytes``
+        from the host tier, and ``ahead_experts``, the host reads queued
+        before their layer asked for its table."""
+        resident, total, ahead = (b - a for a, b in zip(
+            reads0, self._forward_reads()))
         nbytes = self._expert_bytes
         self.obs.complete("engine", "prefill_forward", t0, t1,
                           {"tokens": tokens,
                            "h2d_bytes": (total - resident) * nbytes,
                            "d2d_bytes": resident * nbytes,
-                           "resident_experts": resident, "experts": total})
+                           "resident_experts": resident, "experts": total,
+                           "ahead_experts": ahead})
 
     def _obs_prefill(self, t0: int, n_units: int,
                      ticket: PrefillTicket) -> None:

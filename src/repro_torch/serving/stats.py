@@ -37,9 +37,11 @@ class EngineStats:
     (``stage_d2d_bytes`` / ``stage_h2d_bytes`` / ``slot_d2d_bytes`` /
     ``slot_h2d_bytes``, :func:`repro_torch.core.collaborative.copy_bytes`).
     Prefill forward channel: the prefill forwards' expert-table reads
-    (``prefill_forward_experts``) and those served from the slots
-    (``prefill_forward_resident``,
-    :func:`repro_torch.core.collaborative.forward_experts`).
+    (``prefill_forward_experts``), those served from the slots
+    (``prefill_forward_resident``) and, of the others, those queued on the
+    copy stream before their layer asked for its table
+    (``prefill_forward_ahead``,
+    :class:`repro_torch.core.collaborative.ForwardExperts`).
     """
     # decode demand channel
     hits: int = 0
@@ -109,9 +111,11 @@ class EngineStats:
     slot_h2d_bytes: int = 0
     # prefill forward channel: expert-table reads of the prefill forwards'
     # MoE layers (E a layer a forward), and those read from a resident
-    # expert's slot in HBM rather than from the host tier
+    # expert's slot in HBM rather than from the host tier, and host-tier
+    # reads queued a layer ahead (before their layer asked for its table)
     prefill_forward_resident: int = 0
     prefill_forward_experts: int = 0
+    prefill_forward_ahead: int = 0
     # per-MoE-layer demand series (tuples: immutable + JSON-native)
     per_layer_hits: Tuple[int, ...] = ()
     per_layer_accesses: Tuple[int, ...] = ()

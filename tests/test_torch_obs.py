@@ -26,9 +26,9 @@ and a fork; cross-layer prefetch with the CPU miss lane. What must hold:
   near tie: request 5 at its 4th token, ROADMAP Queue 3), and equal the
   port's own ``EngineStats`` deltas on every step.
 * Every prefill forward's expert reads (``EngineStats``'
-  ``prefill_forward_resident`` / ``prefill_forward_experts``, and the
-  ``prefill_forward`` span's args) equal a hand count from
-  ``cache.lookup`` on the cache state before it.
+  ``prefill_forward_resident`` / ``prefill_forward_experts`` /
+  ``prefill_forward_ahead``, and the ``prefill_forward`` span's args)
+  equal a hand count from ``cache.lookup`` on the cache state before it.
 * Tracing is bit-neutral: the same tokens and counters with the
   recorder on and off.
 * The trace validates, and every request's lifecycle is covered.
@@ -100,9 +100,10 @@ COPY = {"stage_d2d_bytes": ("execute", "d2d_bytes"),
 
 
 # the prefill_forward span's args, and the counters of the forwards' reads
-FORWARD_ARGS = ("d2d_bytes", "experts", "h2d_bytes", "resident_experts",
-                "tokens")
-FORWARD_READS = ("prefill_forward_resident", "prefill_forward_experts")
+FORWARD_ARGS = ("ahead_experts", "d2d_bytes", "experts", "h2d_bytes",
+                "resident_experts", "tokens")
+FORWARD_READS = ("prefill_forward_resident", "prefill_forward_experts",
+                 "prefill_forward_ahead")
 
 
 def _port_only(mode):
@@ -266,7 +267,7 @@ def _port_serve(tparams, mode, recorder):
             E, dtype=torch.int32))[0].sum()) for layer in range(L))
         out = backbone(*a, **k)
         after = dataclasses.asdict(engine.stats)
-        forwards.append(((hand, L * E),
+        forwards.append(((hand, L * E, L * E - hand),
                          tuple(after[f] - before[f] for f in FORWARD_READS)))
         return out
 
@@ -531,8 +532,9 @@ def test_prefill_forward_once_per_admission(runs):
     tick's ``admission``, with the prompt's tokens and, as its reads and
     bytes, the hand count of the forward it times: of every layer's E
     experts, those ``cache.lookup`` finds resident before it from the
-    slots, the others from the host tier; none where the prompt is
-    segment-streamed (its forward is the ``segment_stream`` spans)."""
+    slots, the others from the host tier, each of those queued a layer
+    ahead (``ahead_experts``); none where the prompt is segment-streamed
+    (its forward is the ``segment_stream`` spans)."""
     mode, r = runs
     rec, sched = r["trec"], r["traced"]["sched"]
     spans = _engine_spans(rec, ("prefill_forward",))
@@ -549,9 +551,9 @@ def test_prefill_forward_once_per_admission(runs):
     prompts = sorted(len(p) for p, _ in _requests(
         r["traced"]["engine"].cfg.vocab_size, False))
     assert sorted(ev.args["tokens"] for ev in spans) == prompts
-    for ev, ((resident, total), _) in zip(spans, forwards):
-        assert (ev.args["resident_experts"], ev.args["experts"]) == \
-            (resident, total)
+    for ev, ((resident, total, ahead), _) in zip(spans, forwards):
+        assert (ev.args["resident_experts"], ev.args["experts"],
+                ev.args["ahead_experts"]) == (resident, total, ahead)
         assert ev.args["d2d_bytes"] == resident * expert
         assert ev.args["h2d_bytes"] == (total - resident) * expert
         assert any(a.ts_ns <= ev.ts_ns and
@@ -562,19 +564,20 @@ def test_prefill_forward_once_per_admission(runs):
 def test_prefill_forward_reads_match_a_hand_count(runs):
     """Every prefill forward (each admission's, or each streamed
     segment's) adds to ``prefill_forward_resident`` /
-    ``prefill_forward_experts`` the experts ``cache.lookup`` finds
-    resident on the state before it and every layer's E; the run's
-    counters are their sums, and some reads came from the slots."""
+    ``prefill_forward_experts`` / ``prefill_forward_ahead`` the experts
+    ``cache.lookup`` finds resident on the state before it, every layer's
+    E, and the others, each queued a layer ahead; the run's counters are
+    their sums, and some reads came from the slots."""
     mode, r = runs
     forwards = r["traced"]["forwards"]
     assert forwards
     for i, (hand, counted) in enumerate(forwards):
         assert counted == hand, f"forward {i}"
     stats = r["traced"]["sched"].stats
-    resident, total = (sum(c) for c in zip(*(h for h, _ in forwards)))
-    assert (stats.prefill_forward_resident,
-            stats.prefill_forward_experts) == (resident, total)
-    assert 0 < resident < total
+    resident, total, ahead = (sum(c) for c in zip(*(h for h, _ in forwards)))
+    assert (stats.prefill_forward_resident, stats.prefill_forward_experts,
+            stats.prefill_forward_ahead) == (resident, total, ahead)
+    assert 0 < resident < total and ahead == total - resident
     print(f"\n{mode}: {len(forwards)} forwards read {resident} of {total} "
           f"experts from the slots")
 

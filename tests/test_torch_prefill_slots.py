@@ -17,7 +17,23 @@ state (tags, ages, flags, clock) and the slots as it found them, and the
 engine's counters count, forward by forward, what ``cache.lookup`` on
 the state before it finds resident. Then a scheduler run serves the same
 greedy tokens with the source and without it.
+
+Each forward's source (``collaborative.ForwardExperts``) queues layer
+l+1's host-tier reads when it hands layer l its table, layer 0's before
+the embedding (on the CPU the copies are synchronous). In the same cases
+the forward runs with that lookahead and without it (each layer's table
+read when it asks, as ``forward_experts`` alone): the tables each layer
+gets equal ``forward_experts``' own, the outputs are bitwise equal, the
+reads stop at the last MoE layer, no table outlives the forward, and
+``prefill_forward_ahead`` counts exactly the reads queued before their
+layer asked. A scheduler run serves the same greedy tokens with and
+without the lookahead.
 """
+import dataclasses
+import gc
+import weakref
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +53,23 @@ PROMPT, NEW = 12, 6
 SERVING = dict(max_batch=1, capacity=PROMPT + NEW + 2, prefill_chunk=8)
 LRU = dict(num_indexes=L, num_ways=6, policy="lru")
 BACKBONE = transformer.backbone
+LOOKAHEAD = collab.ForwardExperts
+
+
+class OneLayer:
+    """A forward's source without the lookahead: each layer's table read
+    when the layer asks (``forward_experts``), nothing queued ahead."""
+
+    def __init__(self, tiers, ccfg):
+        self.tiers, self.ccfg = tiers, ccfg
+
+    def read(self, layer):
+        table, resident = collab.forward_experts(self.tiers, layer,
+                                                 self.ccfg)
+        return table, resident, 0
+
+    def close(self):
+        pass
 
 
 @pytest.fixture(scope="module")
@@ -137,50 +170,75 @@ def _resident(state):
         E, dtype=torch.int32))[0].sum()) for layer in range(L)]
 
 
-def _run(params, case, source):
+def _run(params, case, source, lookahead=True):
     """One engine prepared for ``case`` and its forward, with the slot
-    source or with it dropped (the host tables). Returns (outputs, each
-    backbone call's (resident experts a layer by lookup before it, the
-    counters' deltas over it, the tiers before and after it), the
-    engine's stats before the forward, engine)."""
+    source (queuing a layer ahead, or with ``lookahead`` False, each
+    layer's reads when it asks) or with it dropped (the host tables).
+    Returns what it saw: the forward's outputs; each backbone call's
+    (resident experts a layer by lookup before it, the counters' deltas
+    over it, the tiers before and after it); each table a layer was
+    handed (layer, equal to ``forward_experts``' own, weak references);
+    every layer whose host reads a source queued, in order; the engine's
+    stats before the forward, and the engine."""
     cache, serving, prep, forward, _ = CASES[case]
     engine, sched = build(CFG, cache=cache, serving=dict(SERVING, **serving),
                           params=params, seed=0, device="cpu")
     if prep is not None:
         prep(engine, sched)
-    stats0, calls = engine.stats, []
+    stats0, calls, handed, issued = engine.stats, [], [], []
+    issue = LOOKAHEAD._issue
+
+    def seen_issue(self, layer):
+        issued.append(layer)
+        return issue(self, layer)
 
     def backbone(*a, expert_source=None, **k):
         before, reads0 = _snapshot(engine.tiers), engine._forward_reads()
         hand = _resident(engine.tiers.state)
-        out = BACKBONE(*a, expert_source=expert_source if source else None,
-                       **k)
+
+        def seen(layer):
+            table = expert_source(layer)
+            want, _ = collab.forward_experts(engine.tiers, layer,
+                                             engine.ecfg.cache)
+            handed.append((layer, all(torch.equal(t, w)
+                                      for t, w in zip(table, want)),
+                           [weakref.ref(t) for t in table]))
+            return table
+
+        out = BACKBONE(*a, expert_source=seen if source else None, **k)
         reads = [b - a for a, b in zip(reads0, engine._forward_reads())]
         calls.append((hand, reads, before, _snapshot(engine.tiers)))
         return out
 
-    with mock.patch.object(transformer, "backbone", backbone):
+    with mock.patch.object(transformer, "backbone", backbone), \
+            mock.patch.object(LOOKAHEAD, "_issue", seen_issue), \
+            mock.patch.object(collab, "ForwardExperts",
+                              LOOKAHEAD if lookahead else OneLayer):
         outs = forward(engine)
-    return outs, calls, stats0, engine
+    gc.collect()
+    return SimpleNamespace(outs=outs, calls=calls, handed=handed,
+                           issued=issued, stats0=stats0, engine=engine)
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_reads_slots_bitwise(params, case):
-    got, calls, stats0, engine = _run(params, case, source=True)
-    want, host_calls, _, _ = _run(params, case, source=False)
+    run = _run(params, case, source=True)
+    host = _run(params, case, source=False)
+    got, calls, engine = run.outs, run.calls, run.engine
+    want = host.outs
     assert len(got) == len(want) and calls
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), f"{case}: output {i}"
     resident = 0
-    for hand, (res, n), before, after in calls:
+    for hand, (res, n, ahead), before, after in calls:
         # the forward only reads the cache state and the slots
         assert all(torch.equal(x, y) for x, y in zip(before, after))
-        assert (res, n) == (sum(hand), L * E)
+        assert (res, n, ahead) == (sum(hand), L * E, L * E - sum(hand))
         if case == "partial_coverage":      # layers >= N read the host
             assert hand[1:] == [0] * (L - 1)
         resident += res
-    assert all(reads == [0, 0] for _, reads, _, _ in host_calls)
-    s0, s1 = stats0, engine.stats
+    assert all(reads == [0, 0, 0] for _, reads, _, _ in host.calls)
+    s0, s1 = run.stats0, engine.stats
     assert s1.prefill_forward_resident - s0.prefill_forward_resident == \
         resident
     assert s1.prefill_forward_experts - s0.prefill_forward_experts == \
@@ -215,3 +273,107 @@ def test_served_tokens_equal_with_and_without_the_source(params):
         assert torch.equal(x, y)
     assert engine.stats.prefill_forward_resident > 0
     assert host.stats.prefill_forward_experts == 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_lookahead_hands_each_layer_its_table(params, case):
+    """The padded, segment-streamed and static-batch forwards with the
+    lookahead and without it: bitwise equal outputs; every table handed
+    equals ``forward_experts``' own on the state as it stands; each
+    forward queues layers 0 .. L-1 once, in order, and nothing past the
+    last; no handed table is alive once the forward has returned; the
+    cache state and the slots are as before; ``prefill_forward_ahead``
+    counts every host read with the lookahead and none without."""
+    ahead, plain = (_run(params, case, source=True, lookahead=flag)
+                    for flag in (True, False))
+    assert len(ahead.outs) == len(plain.outs)
+    for i, (a, b) in enumerate(zip(ahead.outs, plain.outs)):
+        assert torch.equal(a, b), f"{case}: output {i}"
+    for run, want_issued in ((ahead, list(range(L))), (plain, [])):
+        n = len(run.calls)
+        assert n > 0
+        assert [layer for layer, _, _ in run.handed] == list(range(L)) * n
+        assert all(equal for _, equal, _ in run.handed), case
+        assert run.issued == want_issued * n
+        assert not any(r() is not None for _, _, refs in run.handed
+                       for r in refs), "a table outlived its forward"
+        queued = 0
+        for hand, (res, total, queued_ahead), before, after in run.calls:
+            assert all(torch.equal(x, y) for x, y in zip(before, after))
+            assert (res, total) == (sum(hand), L * E)
+            assert queued_ahead == (total - res if run is ahead else 0)
+            queued += queued_ahead
+        s0, s1 = run.stats0, run.engine.stats
+        assert s1.prefill_forward_ahead - s0.prefill_forward_ahead == queued
+    assert ahead.engine.stats.prefill_forward_ahead > \
+        ahead.stats0.prefill_forward_ahead
+
+
+def test_served_tokens_equal_with_and_without_the_lookahead(params):
+    """The scheduler run of the source's test, with the lookahead and
+    without it: the same first and greedy tokens, the same final cache
+    state and slots, and every host read of the forwards queued ahead."""
+    def serve(source):
+        engine, sched = build(CFG, cache=LRU, serving=dict(
+            SERVING, max_batch=2), params=params, seed=0, device="cpu")
+        with mock.patch.object(collab, "ForwardExperts", source):
+            reqs = [sched.submit(p, max_new_tokens=NEW)
+                    for p in _prompts(4, seed=4)]
+            sched.run()
+        return [r.output for r in reqs], engine
+
+    got, engine = serve(LOOKAHEAD)
+    want, plain = serve(OneLayer)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    for x, y in zip((*engine.tiers.state, *engine.tiers.slots),
+                    (*plain.tiers.state, *plain.tiers.slots)):
+        assert torch.equal(x, y)
+    s, p = engine.stats, plain.stats
+    assert s.prefill_forward_ahead == \
+        s.prefill_forward_experts - s.prefill_forward_resident > 0
+    assert p.prefill_forward_ahead == 0
+    assert (s.prefill_forward_resident, s.prefill_forward_experts) == \
+        (p.prefill_forward_resident, p.prefill_forward_experts)
+
+
+CFG4 = dataclasses.replace(CFG, num_layers=4)
+
+
+@pytest.mark.parametrize("layers", [(0, 1, 2, 3), (0, 2, 3), (1, 2),
+                                    (0, 0, 1, 3, 3)])
+def test_lookahead_counts_the_reads_queued_ahead(layers):
+    """A source read in another order than the forward's (a layer
+    skipped, a layer read twice) on a four-layer model, two of whose
+    layers the cache covers, partly warm: each table equals
+    ``forward_experts``' own, also where the two tables are reused, and a
+    read counts as ahead only where the layer before it queued it (layer
+    0: the source, when made). Nothing is queued past the last layer,
+    and nothing is held after ``close``."""
+    engine, sched = build(CFG4, cache=dict(LRU, num_indexes=2),
+                          serving=SERVING, seed=0, device="cpu")
+    _serve_one(engine, sched)
+    tiers, ccfg = engine.tiers, engine.ecfg.cache
+    before = _snapshot(tiers)
+    issued, issue = [], LOOKAHEAD._issue
+
+    def seen_issue(self, layer):
+        issued.append(layer)
+        return issue(self, layer)
+
+    with mock.patch.object(LOOKAHEAD, "_issue", seen_issue):
+        src = collab.ForwardExperts(tiers, ccfg)
+        prev, refs = -1, []
+        for layer in layers:
+            table, resident, ahead = src.read(layer)
+            want, want_res = collab.forward_experts(tiers, layer, ccfg)
+            assert all(torch.equal(t, w) for t, w in zip(table, want))
+            assert resident == want_res
+            assert ahead == (E - resident if layer == prev + 1 else 0)
+            refs += [weakref.ref(t) for t in table]
+            prev = layer
+        del table
+        src.close()
+    gc.collect()
+    assert all(r() is None for r in refs)
+    assert max(issued) <= 3 and issued[0] == 0
+    assert all(torch.equal(x, y) for x, y in zip(before, _snapshot(tiers)))
