@@ -682,7 +682,7 @@ def check_host_layer(engine):
                         device="cuda").to(torch.bfloat16)
         router = engine.params["scan"]["s0"]["moe"]["router"][layer]
         _, top_i, top_w = route(router, x.float(), K)
-        pr = collab.probe(engine.tiers, layer, top_i, ccfg)
+        pr = collab.probe(engine.tiers, layer, top_i.cpu(), ccfg)
         y, staged, dstats = hostexec.dispatch_execute(
             engine.tiers, layer, x, top_w, pr, ccfg, engine._cpu_table,
             engine.host_executor, engine.ecfg.host_fuse_small)

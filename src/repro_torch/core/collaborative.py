@@ -7,7 +7,7 @@ one GPU (counterpart of the reference's ``core/collaborative.py``):
              assignments by unique expert. The picks must be on the host:
              reading them is the one device->host sync of a MoE layer,
              which the engine makes just before the probe (its ``picks``
-             phase); a device tensor given here is read here instead.
+             phase).
   execute  — grouped: the assignments run through a [G, A, D] dispatch
              buffer and the hand-written grouped kernels
              (:func:`repro_torch.kernels.moe_gmm.moe_ffn`). Each unique
@@ -72,44 +72,61 @@ from repro_torch.models.layers import mm, silu
 from . import cache as cache_lib
 
 
+Copies = List[Tuple[torch.Tensor, torch.Tensor]]     # (dst, src) pairs
+
+
 class CopyStream:
-    """The second CUDA stream that slot writes run on, with the event of the
-    last copy into each layer's slots (no stream on the CPU)."""
+    """The second CUDA stream that slot writes and a forward's host-tier
+    reads run on, with the event of the last copy into each layer's slots
+    (no stream on the CPU). The only code that touches the stream."""
 
     def __init__(self, device: torch.device):
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
         self._last: Dict[int, torch.cuda.Event] = {}
 
-    def write(self, layer: int, writes: List[Tuple[torch.Tensor,
-                                                   torch.Tensor]],
-              keep: Tuple[torch.Tensor, ...] = ()) -> None:
-        """Copy each (dst, src) pair of ``writes`` into ``layer``'s slots:
-        on the copy stream after the compute stream's work so far (a); the
-        tensors of ``keep``, which the copies read, stay allocated until
-        they end (c). On the CPU, synchronously (d)."""
-        if not writes:
-            return
+    def queue(self, copies: Copies, keep: Tuple[torch.Tensor, ...] = ()
+              ) -> Optional[torch.cuda.Event]:
+        """Copy each (dst, src) pair of ``copies``: on the copy stream after
+        the compute stream's work so far (a); the tensors of ``keep``,
+        which the copies read, stay allocated until they end (c). On the
+        CPU, synchronously (d). Returns the event of their end, None when
+        nothing was queued."""
+        if not copies:
+            return None
         if self.stream is None:
-            for dst, src in writes:
+            for dst, src in copies:
                 dst.copy_(src)
-            return
+            return None
         self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
         with torch.cuda.stream(self.stream):
-            for dst, src in writes:
+            for dst, src in copies:
                 dst.copy_(src, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
         for t in keep:
             t.record_stream(self.stream)
-        self._last[layer] = done
+        return done
 
-    def wait(self, layer: int) -> None:
-        """(b) The compute stream waits for the last copy into ``layer``'s
-        slots; later compute work is ordered after it, so it waits once."""
-        done = self._last.pop(layer, None)
+    def join(self, done: Optional[torch.cuda.Event]) -> None:
+        """(b) The compute stream waits for ``done`` (from :meth:`queue`):
+        whatever it queues next, a read of what the copies wrote or an
+        allocation over their memory once freed, comes after them."""
         if done is not None:
             torch.cuda.current_stream(self.stream.device).wait_event(done)
+
+    def write(self, layer: int, writes: Copies,
+              keep: Tuple[torch.Tensor, ...] = ()) -> None:
+        """:meth:`queue` copies into ``layer``'s slots, remembered until the
+        layer's next :meth:`wait`."""
+        done = self.queue(writes, keep)
+        if done is not None:
+            self._last[layer] = done
+
+    def wait(self, layer: int) -> None:
+        """The compute stream waits for the last copy into ``layer``'s
+        slots; later compute work is ordered after it, so it waits once."""
+        self.join(self._last.pop(layer, None))
 
 
 class ExpertTiers(NamedTuple):
@@ -211,16 +228,15 @@ def probe(tiers: ExpertTiers, layer: int, top_i: torch.Tensor,
           ccfg: CacheConfig,
           active: Optional[torch.Tensor] = None) -> ProbeResult:
     """Stage 1 — cache check + grouping for one layer's top-k picks.
-    ``top_i`` [T, K] on the host (the engine reads it before the probe);
-    one on the device is read to the host here.
+    ``top_i`` [T, K] and ``active`` [T] bool on the host (the engine reads
+    the picks before the probe).
     Residency for execution is probed against the landed PRE-access state
     (a slot claimed this step holds its weights from the next step on).
     Landing is where the compute stream waits for the layer's slot copies."""
     T, K = top_i.shape
-    flat_e = top_i.to("cpu").reshape(-1).to(torch.int32)
+    flat_e = top_i.reshape(-1).to(torch.int32)
     if active is not None:
-        act = torch.as_tensor(active, dtype=torch.bool).to("cpu")
-        flat_e = torch.where(act.repeat_interleave(K), flat_e,
+        flat_e = torch.where(active.repeat_interleave(K), flat_e,
                              torch.full_like(flat_e, -1))
     valid = flat_e >= 0
     tiers.copy.wait(layer)
@@ -242,36 +258,45 @@ class Staged(NamedTuple):
     w2: torch.Tensor          # [len(groups), F, D]
 
 
-def _gather_experts(tiers: ExpertTiers, layer: int, experts: List[int],
-                    ways: List[int], ccfg: CacheConfig, device
-                    ) -> List[torch.Tensor]:
-    """Fresh w1, w3 [n, D, F] and w2 [n, F, D] buffers on ``device``, row c
-    holding expert ``experts[c]``'s weights: from its slot where
-    ``ways[c] >= 0`` (resident), else host->device from pinned memory
-    (non-blocking)."""
-    out = [torch.empty((len(experts),) + tuple(s.shape[1:]), dtype=s.dtype,
-                       device=device) for s in tiers.slots]
-    for c, (e, way) in enumerate(zip(experts, ways)):
+def _empty_table(tiers: ExpertTiers, n: int, device
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Fresh w1, w3 [n, D, F] and w2 [n, F, D] buffers on ``device``."""
+    return tuple(torch.empty((n,) + tuple(s.shape[1:]), dtype=s.dtype,
+                             device=device) for s in tiers.slots)
+
+
+def _row_copies(tiers: ExpertTiers, layer: int,
+                out: Tuple[torch.Tensor, ...],
+                rows: List[Tuple[int, int, int]], ccfg: CacheConfig
+                ) -> Copies:
+    """Where a read finds an expert: the copies, in order, that fill row c
+    of ``out``'s w1, w3 and w2 with ``layer``'s expert e for each
+    (c, e, way) of ``rows``, from the expert's slot where ``way >= 0``
+    (resident), else from the host tier."""
+    copies = []
+    for c, e, way in rows:
         if way >= 0:
-            src = cache_lib.slot_id(layer, way, ccfg.num_ways)
-            for buf, slot in zip(out, tiers.slots):
-                buf[c].copy_(slot[src])
+            at = cache_lib.slot_id(layer, way, ccfg.num_ways)
+            srcs = [slot[at] for slot in tiers.slots]
         else:
-            for buf, host in zip(out, tiers.host):
-                buf[c].copy_(host[layer, e], non_blocking=True)
-    return out
+            srcs = [host[layer, e] for host in tiers.host]
+        copies += [(buf[c], src) for buf, src in zip(out, srcs)]
+    return copies
 
 
 def _stage_group_weights(tiers: ExpertTiers, layer: int, pr: ProbeResult,
                          ccfg: CacheConfig, groups: List[int],
                          device) -> Staged:
-    """Each unique expert's weights once: resident groups from the slot
-    buffer, the rest host->device from pinned memory (non-blocking)."""
-    experts = [int(pr.rep_e[g]) for g in groups]
-    ways = [int(pr.res_way[g]) if bool(pr.resident[g]) else -1
-            for g in groups]
-    return Staged(groups, *_gather_experts(tiers, layer, experts, ways, ccfg,
-                                           device))
+    """Each unique expert's weights once, on the compute stream, into
+    fresh buffers on ``device``: resident groups from the slot buffer, the
+    rest host->device from pinned memory (non-blocking)."""
+    out = _empty_table(tiers, len(groups), device)
+    rows = [(c, int(pr.rep_e[g]),
+             int(pr.res_way[g]) if bool(pr.resident[g]) else -1)
+            for c, g in enumerate(groups)]
+    for dst, src in _row_copies(tiers, layer, out, rows, ccfg):
+        dst.copy_(src, non_blocking=True)
+    return Staged(groups, *out)
 
 
 class _Reads(NamedTuple):
@@ -279,50 +304,23 @@ class _Reads(NamedTuple):
     layer: int
     table: Tuple[torch.Tensor, ...]     # w1, w3 [E, D, F], w2 [E, F, D]
     ways: List[int]                     # each expert's way; -1: the host's
-    done: Optional[torch.cuda.Event]    # the host reads' end (CPU: None)
-
-
-def _empty_table(tiers: ExpertTiers) -> Tuple[torch.Tensor, ...]:
-    E = tiers.host_w1.shape[1]
-    return tuple(torch.empty((E,) + tuple(s.shape[1:]), dtype=s.dtype,
-                             device=s.device) for s in tiers.slots)
+    done: Optional[torch.cuda.Event]    # the host reads' end (or None)
 
 
 def _read_host(tiers: ExpertTiers, layer: int,
-               table: Tuple[torch.Tensor, ...]) -> _Reads:
+               table: Tuple[torch.Tensor, ...], ccfg: CacheConfig) -> _Reads:
     """Queue ``layer``'s non-resident experts host->device into their rows
-    of ``table``: on the copy stream, after the compute stream's work so
-    far, which covers every earlier read of ``table``'s memory (a); on the
-    CPU, synchronously (d). Residency is
+    of ``table`` on the copy stream (:meth:`CopyStream.queue`), after the
+    compute stream's work so far, which covers every earlier read of
+    ``table``'s memory. Residency is
     :func:`~repro_torch.core.cache.lookup` on the state as it stands."""
     E = tiers.host_w1.shape[1]
     hit, way = cache_lib.lookup(tiers.state, layer,
                                 torch.arange(E, dtype=torch.int32))
     ways = torch.where(hit, way, -1).tolist()
-    misses = [e for e, w in enumerate(ways) if w < 0]
-    stream = tiers.copy.stream
-    if stream is None:
-        for e in misses:
-            for buf, host in zip(table, tiers.host):
-                buf[e].copy_(host[layer, e])
-        return _Reads(layer, table, ways, None)
-    stream.wait_stream(torch.cuda.current_stream(stream.device))
-    with torch.cuda.stream(stream):
-        for e in misses:
-            for buf, host in zip(table, tiers.host):
-                buf[e].copy_(host[layer, e], non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+    misses = [(e, e, w) for e, w in enumerate(ways) if w < 0]
+    done = tiers.copy.queue(_row_copies(tiers, layer, table, misses, ccfg))
     return _Reads(layer, table, ways, done)
-
-
-def _settle(reads: Optional[_Reads]) -> None:
-    """The compute stream waits for ``reads``' host copies: whatever it
-    queues next, a read of the table or an allocation over its memory once
-    freed, comes after them."""
-    if reads is not None and reads.done is not None:
-        torch.cuda.current_stream(reads.table[0].device).wait_event(
-            reads.done)
 
 
 def _read_slots(tiers: ExpertTiers, reads: _Reads, ccfg: CacheConfig
@@ -330,12 +328,10 @@ def _read_slots(tiers: ExpertTiers, reads: _Reads, ccfg: CacheConfig
     """On the compute stream: wait for the layer's last slot write (b) and
     for its host reads, then copy each resident expert from its slot."""
     tiers.copy.wait(reads.layer)
-    _settle(reads)
-    for e, way in enumerate(reads.ways):
-        if way >= 0:
-            src = cache_lib.slot_id(reads.layer, way, ccfg.num_ways)
-            for buf, slot in zip(reads.table, tiers.slots):
-                buf[e].copy_(slot[src])
+    tiers.copy.join(reads.done)
+    hits = [(e, e, w) for e, w in enumerate(reads.ways) if w >= 0]
+    for dst, src in _row_copies(tiers, reads.layer, reads.table, hits, ccfg):
+        dst.copy_(src)
     return reads.table
 
 
@@ -351,9 +347,9 @@ def forward_experts(tiers: ExpertTiers, layer: int, ccfg: CacheConfig
     landed, so a PENDING reservation (its copy may still be in flight)
     reads from the host. Only reads: the cache state and the slots are
     left as they are."""
-    reads = _read_host(tiers, layer, _empty_table(tiers))
-    table = _read_slots(tiers, reads, ccfg)
-    return table, sum(w >= 0 for w in reads.ways)
+    table = _empty_table(tiers, tiers.host_w1.shape[1], tiers.slot_w1.device)
+    reads = _read_host(tiers, layer, table, ccfg)
+    return _read_slots(tiers, reads, ccfg), sum(w >= 0 for w in reads.ways)
 
 
 class ForwardExperts:
@@ -382,9 +378,11 @@ class ForwardExperts:
     def _issue(self, layer: int) -> _Reads:
         t = self._turn
         self._turn ^= 1
+        tiers = self.tiers
         if self._tables[t] is None:
-            self._tables[t] = _empty_table(self.tiers)
-        return _read_host(self.tiers, layer, self._tables[t])
+            self._tables[t] = _empty_table(tiers, tiers.host_w1.shape[1],
+                                           tiers.slot_w1.device)
+        return _read_host(tiers, layer, self._tables[t], self.ccfg)
 
     def read(self, layer: int) -> Tuple[Tuple[torch.Tensor, ...], int, int]:
         """``layer``'s table (valid until the layer after next is read),
@@ -394,7 +392,8 @@ class ForwardExperts:
         reads, self._next = self._next, None
         ahead = reads is not None and reads.layer == layer
         if not ahead:
-            _settle(reads)
+            if reads is not None:
+                self.tiers.copy.join(reads.done)
             reads = self._issue(layer)
         if layer + 1 < self.num_layers:
             self._next = self._issue(layer + 1)
@@ -406,7 +405,8 @@ class ForwardExperts:
         """The compute stream waits for reads of a layer the forward did
         not reach, so the tables go back to the allocator with no copy
         still writing them; then they go."""
-        _settle(self._next)
+        if self._next is not None:
+            self.tiers.copy.join(self._next.done)
         self._next = None
         self._tables = [None, None]
 
@@ -573,8 +573,8 @@ def prefetch(tiers: ExpertTiers, layer: int, pred_i: torch.Tensor,
              ) -> Tuple[ExpertTiers, torch.Tensor, torch.Tensor, int]:
     """Stage 4 — speculative cross-layer prefetch into reserved slots.
 
-    pred_i [T, K] predicted picks for ``layer`` (may lie on the device: it
-    is read to the host here). Reserves slots with policy-correct eviction
+    pred_i [T, K] predicted picks for ``layer`` and ``active`` [T] bool, on
+    the host. Reserves slots with policy-correct eviction
     but no demand accounting (``rank_votes``: stamped with the picks' vote
     counts), then copies each issued expert's host-tier weights into its
     claimed slot on the copy stream, once per unique predicted expert. The
@@ -583,10 +583,9 @@ def prefetch(tiers: ExpertTiers, layer: int, pred_i: torch.Tensor,
     groups whose reservation claimed a slot, the number of issued
     picks)."""
     T, K = pred_i.shape
-    flat_p = pred_i.to("cpu").reshape(-1).to(torch.int32)
+    flat_p = pred_i.reshape(-1).to(torch.int32)
     if active is not None:
-        act = torch.as_tensor(active, dtype=torch.bool).to("cpu")
-        flat_p = torch.where(act.repeat_interleave(K), flat_p,
+        flat_p = torch.where(active.repeat_interleave(K), flat_p,
                              torch.full_like(flat_p, -1))
     priority = prediction_votes(flat_p) if rank_votes else None
     new_state, issued_a, ways_a = cache_lib.reserve(
@@ -646,8 +645,9 @@ def collaborative_moe(tiers: ExpertTiers, layer: int, x: torch.Tensor,
                       top_i: torch.Tensor, top_w: torch.Tensor,
                       ccfg: CacheConfig,
                       active: Optional[torch.Tensor] = None):
-    """probe -> execute -> commit for one layer. Returns (y, tiers, stats)."""
-    pr = probe(tiers, layer, top_i, ccfg, active=active)
+    """probe -> execute -> commit for one layer (``top_i`` read to the host
+    here). Returns (y, tiers, stats)."""
+    pr = probe(tiers, layer, top_i.cpu(), ccfg, active=active)
     y, staged = execute(tiers, layer, x, top_w, pr, ccfg)
     tiers, fetch = commit(tiers, layer, pr, staged, ccfg)
     return y, tiers, _stats(pr, fetch)
@@ -662,9 +662,9 @@ def collaborative_moe_offloaded(tiers: ExpertTiers, layer: int,
     resident groups run through the gmm kernels on the card, every
     non-resident group on ``executor`` over the pinned host tier (its
     activations cross to the host and back), and the post-fetch of the
-    newly inserted experts goes host->device on the copy stream. Returns
-    (y, tiers, stats)."""
-    pr = probe(tiers, layer, top_i, ccfg, active=active)
+    newly inserted experts goes host->device on the copy stream (``top_i``
+    read to the host here). Returns (y, tiers, stats)."""
+    pr = probe(tiers, layer, top_i.cpu(), ccfg, active=active)
     to_cpu = ~pr.resident & (pr.rep_e >= 0)
     y, staged = execute_lanes(tiers, layer, x, top_w, pr, ccfg, to_cpu,
                               executor)

@@ -97,7 +97,7 @@ raises).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -118,18 +118,13 @@ from .stats import EngineStats
 
 Params = Dict[str, Any]
 
-# options of the reference's EngineConfig that this port does not run yet,
-# with the value that means "off" (none left)
-UNPORTED: Dict[str, Any] = {}
-NO_DISPATCH = {"cpu_expert_calls": 0, "cpu_tokens": 0,
-               "miss_expert_groups": 0, "fused_groups": 0}
 # a decode layer's host phases, in order (prefetch only with
 # EngineConfig.prefetch): each spans two of the layer's clock readings
 PHASES = ("attn_route", "picks", "probe", "execute", "post_fetch",
           "prefetch")
-# the copy channel: per-layer stats keys and EngineStats counters
-COPY_KEYS = ("stage_d2d_bytes", "stage_h2d_bytes", "slot_d2d_bytes",
-             "slot_h2d_bytes")
+# the reference's per-layer stats key that EngineStats names otherwise;
+# every other key is the name of the counter it adds to
+RENAMED = {"host_flops_assignments": "host_assignments"}
 
 
 @dataclass(frozen=True)
@@ -171,10 +166,6 @@ class EngineConfig:
     prefix_keep_pages: int = 0
 
     def __post_init__(self):
-        for name, off in UNPORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported to repro_torch yet")
         if self.prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
@@ -362,19 +353,9 @@ class CollaborativeEngine:
         self._slot_tables: List[Optional[PageTable]] = [None] * ecfg.max_batch
         self._slot_pages: Optional[np.ndarray] = None
         L = cfg.num_layers
-        self._counters = {
-            "hits": 0, "accesses": 0, "host_assignments": 0,
-            "fetched_experts": 0, "tokens": 0, "steps": 0,
-            "prefetch_issued": 0, "prefetch_hits": 0, "prefetch_wasted": 0,
-            "predicted": 0, "predicted_correct": 0,
-            "cpu_expert_calls": 0, "cpu_tokens": 0,
-            "miss_expert_groups": 0, "fused_groups": 0,
-            "prefill_hits": 0, "prefill_accesses": 0,
-            "prefill_fetched": 0, "prefill_tokens": 0, "prefill_chunks": 0,
-            "first_tokens": 0, "prefill_segments": 0,
-            "prefix_tokens_skipped": 0, **dict.fromkeys(COPY_KEYS, 0),
-            "prefill_forward_resident": 0, "prefill_forward_experts": 0,
-            "prefill_forward_ahead": 0}
+        # the counter record: every integer field of EngineStats
+        self._counters = {f.name: 0 for f in fields(EngineStats)
+                          if isinstance(f.default, int)}
         self._per_layer_hits = np.zeros(L, np.int64)
         self._per_layer_accesses = np.zeros(L, np.int64)
         self._expert_bytes = collab.expert_bytes(self.tiers)
@@ -468,7 +449,7 @@ class CollaborativeEngine:
             else:
                 y, staged = collab.execute(self.tiers, layer, h2[:, 0],
                                            top_w, pr, ccfg)
-                dstats = NO_DISPATCH
+                dstats = {}
             ts[4] = now_ns()
             self.tiers, fetch = collab.commit(self.tiers, layer, pr, staged,
                                               ccfg)
@@ -729,11 +710,6 @@ class CollaborativeEngine:
         finally:
             reads.close()
 
-    def _forward_reads(self) -> Tuple[int, int, int]:
-        c = self._counters
-        return (c["prefill_forward_resident"], c["prefill_forward_experts"],
-                c["prefill_forward_ahead"])
-
     def _check_prompt_len(self, P: int) -> None:
         cap = self.ecfg.capacity
         if not 1 <= P < cap:
@@ -832,10 +808,10 @@ class CollaborativeEngine:
         if self.ecfg.prefill_segment > 0:
             return self._start_segmented(prompt, table, shared,
                                          warm=chunk != 0)
-        t0, reads0 = now_ns(), self._forward_reads()
+        t0, snap = now_ns(), dict(self._counters)
         if chunk == 0:
             logits, state, _ = self._padded_prefill(prompt)
-            self._obs_prefill_forward(t0, now_ns(), P, reads0)
+            self._obs_prefill_forward(t0, now_ns(), P, snap)
             return PrefillTicket(prompt_len=P, chunk=0, n_chunks=0,
                                  logits=logits, state=state, table=table,
                                  prompt=prompt[0], shared_tokens=shared)
@@ -843,7 +819,7 @@ class CollaborativeEngine:
         n_chunks = -(-P // chunk)
         pad_to = n_chunks * chunk
         top_i = trace["top_i"][:, 0].cpu()                   # [L, S, K]
-        self._obs_prefill_forward(t0, now_ns(), P, reads0)
+        self._obs_prefill_forward(t0, now_ns(), P, snap)
         if pad_to > top_i.shape[1]:
             top_i = torch.nn.functional.pad(
                 top_i, (0, 0, 0, pad_to - top_i.shape[1]))
@@ -1069,9 +1045,7 @@ class CollaborativeEngine:
             for t in act:
                 self.kv_pool.commit_append(self._slot_tables[int(t)])
         t_commit = now_ns()
-        c = self._counters
-        snap = (c["hits"], c["fetched_experts"], c["cpu_expert_calls"],
-                c["prefetch_issued"], c["prefetch_hits"])
+        snap = dict(self._counters)
         n_active = int(active_np.sum())
         self._accumulate(stats, n_active)
         self._obs_decode(t0, t_plan, t_disp, t_commit, snap, busy0,
@@ -1081,12 +1055,8 @@ class CollaborativeEngine:
     def _accumulate(self, stats: List[Dict[str, int]], n_active: int) -> None:
         c = self._counters
         for layer, s in enumerate(stats):
-            for k in ("hits", "accesses", "fetched_experts", "prefetch_hits",
-                      "prefetch_issued", "prefetch_wasted", "predicted",
-                      "predicted_correct", "cpu_expert_calls", "cpu_tokens",
-                      "miss_expert_groups", "fused_groups") + COPY_KEYS:
-                c[k] += s.get(k, 0)
-            c["host_assignments"] += s["host_flops_assignments"]
+            for k, v in s.items():
+                c[RENAMED.get(k, k)] += v
             self._per_layer_hits[layer] += s["hits"]
             self._per_layer_accesses[layer] += s["accesses"]
         c["tokens"] += n_active
@@ -1147,21 +1117,26 @@ class CollaborativeEngine:
         c["prefill_tokens"] += n_tokens
 
     # -- trace drain helpers (the ONLY emission sites) ---------------------
+    def _since(self, snap: Dict[str, int], name: str) -> int:
+        """The change of counter ``name`` since ``snap``, a copy of the
+        counter record."""
+        return self._counters[name] - snap[name]
+
     def _obs_decode(self, t0: int, t_plan: int, t_disp: int, t_commit: int,
-                    snap, busy0: int, n_active: int,
+                    snap: Dict[str, int], busy0: int, n_active: int,
                     stats: List[Dict[str, int]]) -> None:
         """Drain point: emit the decode step's phase spans and lane
         attribution AFTER ``_accumulate`` drained the step's stats. The
         layer loop syncs inside every layer (the picks read of each layer's
         routing), so ``dispatch`` covers almost the whole step and
         ``execute+drain`` only what is left after it; inside ``dispatch``,
-        each layer's host phases from the layer loop's clock readings."""
+        each layer's host phases from the layer loop's clock readings.
+        ``snap``: the counter record before the step's stats drained."""
         t1 = now_ns()
         obs = self.obs
-        c = self._counters
-        hit = c["hits"] - snap[0]
-        fetch = c["fetched_experts"] - snap[1]
-        cpu = c["cpu_expert_calls"] - snap[2]
+        hit = self._since(snap, "hits")
+        fetch = self._since(snap, "fetched_experts")
+        cpu = self._since(snap, "cpu_expert_calls")
         obs.complete("engine", "decode_step", t0, t1,
                      {"tokens": n_active, "hit_experts": hit,
                       "fetched_experts": fetch, "cpu_expert_calls": cpu})
@@ -1180,13 +1155,14 @@ class CollaborativeEngine:
         obs.counter("lane:gpu", "hit_experts", hit, ts_ns=t1)
         obs.counter("lane:fetch", "fetched_experts", fetch, ts_ns=t1)
         obs.counter("lane:cpu", "cpu_expert_calls", cpu, ts_ns=t1)
-        if c["prefetch_issued"] - snap[3]:
-            obs.instant("lane:fetch", "prefetch_reserve",
-                        {"issued": c["prefetch_issued"] - snap[3]},
+        issued = self._since(snap, "prefetch_issued")
+        if issued:
+            obs.instant("lane:fetch", "prefetch_reserve", {"issued": issued},
                         ts_ns=t1)
-        if c["prefetch_hits"] - snap[4]:
-            obs.instant("lane:gpu", "prefetch_land",
-                        {"hits": c["prefetch_hits"] - snap[4]}, ts_ns=t1)
+        landed = self._since(snap, "prefetch_hits")
+        if landed:
+            obs.instant("lane:gpu", "prefetch_land", {"hits": landed},
+                        ts_ns=t1)
         ex = self.host_executor
         if ex is not None and ex.busy_ns > busy0:
             # where the host pool ran this step: its first piece of work's
@@ -1224,17 +1200,18 @@ class CollaborativeEngine:
                 obs.complete("engine", name, row[i], row[i + 1], args)
 
     def _obs_prefill_forward(self, t0: int, t1: int, tokens: int,
-                             reads0: Tuple[int, int, int]) -> None:
+                             snap: Dict[str, int]) -> None:
         """Drain point: the admission's padded prefill forward, from
         before its launch to its routing reaching the host. On the bypass
         path (``chunk == 0``) no routing is read, and the span times the
-        launches only. ``reads0``: :meth:`_forward_reads` before it. Args:
+        launches only. ``snap``: the counter record before it. Args:
         the expert tables' reads, ``resident_experts`` of ``experts``, the
         bytes they copied, ``d2d_bytes`` from the slots and ``h2d_bytes``
         from the host tier, and ``ahead_experts``, the host reads queued
         before their layer asked for its table."""
-        resident, total, ahead = (b - a for a, b in zip(
-            reads0, self._forward_reads()))
+        resident = self._since(snap, "prefill_forward_resident")
+        total = self._since(snap, "prefill_forward_experts")
+        ahead = self._since(snap, "prefill_forward_ahead")
         nbytes = self._expert_bytes
         self.obs.complete("engine", "prefill_forward", t0, t1,
                           {"tokens": tokens,

@@ -436,7 +436,7 @@ def test_host_lane_round_trip_on_card(hopper):
         top_w = torch.rand((3, 2), generator=gen, device="cuda")
         x = torch.randn((3, 512), generator=gen, device="cuda").to(
             torch.bfloat16)
-        pr = collab.probe(tiers, layer, top_i, ccfg)
+        pr = collab.probe(tiers, layer, top_i.cpu(), ccfg)
         misses = int((~pr.resident & (pr.rep_e >= 0)).sum())
         ran = ex.groups
         y, tiers, s = collab.collaborative_moe_offloaded(

@@ -52,7 +52,8 @@ def _engine(policy="lru"):
 def _poison(tiers):
     """Leave the allocator's cached blocks of a table's sizes full of NaN,
     so a read of a table whose copies have not landed shows."""
-    junk = [collab._empty_table(tiers) for _ in range(4)]
+    junk = [collab._empty_table(tiers, CFG.moe.num_experts, "cuda")
+            for _ in range(4)]
     for table in junk:
         for t in table:
             t.fill_(float("nan"))

@@ -54,6 +54,9 @@ SERVING = dict(max_batch=1, capacity=PROMPT + NEW + 2, prefill_chunk=8)
 LRU = dict(num_indexes=L, num_ways=6, policy="lru")
 BACKBONE = transformer.backbone
 LOOKAHEAD = collab.ForwardExperts
+# the counters of a forward's expert reads, in the order ``_run`` reports
+READS = ("prefill_forward_resident", "prefill_forward_experts",
+         "prefill_forward_ahead")
 
 
 class OneLayer:
@@ -193,7 +196,7 @@ def _run(params, case, source, lookahead=True):
         return issue(self, layer)
 
     def backbone(*a, expert_source=None, **k):
-        before, reads0 = _snapshot(engine.tiers), engine._forward_reads()
+        before, stats0 = _snapshot(engine.tiers), engine.stats
         hand = _resident(engine.tiers.state)
 
         def seen(layer):
@@ -206,7 +209,8 @@ def _run(params, case, source, lookahead=True):
             return table
 
         out = BACKBONE(*a, expert_source=seen if source else None, **k)
-        reads = [b - a for a, b in zip(reads0, engine._forward_reads())]
+        stats1 = engine.stats
+        reads = [getattr(stats1, k) - getattr(stats0, k) for k in READS]
         calls.append((hand, reads, before, _snapshot(engine.tiers)))
         return out
 

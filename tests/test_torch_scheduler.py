@@ -9,6 +9,8 @@ being ignored and that nothing falls back to the CPU unasked. Token
 equalities are exact: residency and warming pace change where weights are
 read from, never the numbers.
 """
+import typing
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ from repro_torch.models import init_params
 from repro_torch.serving import (CollaborativeEngine,
                                  ContinuousBatchingScheduler, EngineConfig,
                                  QueueFull, SamplingParams)
-from repro_torch.serving.engine import UNPORTED
+from repro_torch.serving.stats import EngineStats
 
 torch.set_num_threads(2)
 
@@ -263,12 +265,49 @@ def test_seeded_sampling_reproduces_per_request(setup):
     assert any(not np.array_equal(a[r], c[r]) for r in a)
 
 
+def test_decode_steps_add_to_the_counters_their_stats_name(setup):
+    """The engine's counter record holds exactly EngineStats' integer
+    fields, and each decode step, with prefetch and the host lane on, adds
+    to exactly the counters its per-layer stats name (the reference's
+    ``host_flops_assignments`` to ``host_assignments``), and one step and
+    its active tokens; no other counter moves."""
+    cfg, params = setup
+    engine = _engine(cfg, params, slots=2, prefetch=True, host_compute=True)
+    ints = {k for k, t in typing.get_type_hints(EngineStats).items()
+            if t is int}
+    assert set(engine._counters) == ints
+    seen, accumulate = [], engine._accumulate
+
+    def spy(stats, n_active):
+        before = dict(engine._counters)
+        accumulate(stats, n_active)
+        seen.append((stats, n_active, before, dict(engine._counters)))
+
+    engine._accumulate = spy
+    sched = ContinuousBatchingScheduler(engine)
+    for p in _prompts(cfg, 3, seed=4):
+        sched.submit(p, max_new_tokens=4)
+    sched.run()
+    assert seen
+    for stats, n_active, before, after in seen:
+        want = dict.fromkeys(after, 0)
+        for s in stats:
+            assert {"hits", "cpu_expert_calls", "stage_h2d_bytes",
+                    "prefetch_issued", "predicted"} <= set(s)
+            for k, v in s.items():
+                want[{"host_flops_assignments": "host_assignments"}.get(
+                    k, k)] += v
+        want["tokens"] += n_active
+        want["steps"] += 1
+        assert {k: after[k] - before[k] for k in after} == want
+    assert seen[-1][3]["accesses"] > 0
+
+
 @pytest.mark.parametrize("name", ["host_compute", "prefetch"])
 def test_unported_engine_options_raise(name):
-    """Prefetch and the host lane are ported: no engine option is left
-    unported, and the option now runs; what still raises is the
-    reference's in-graph host backend, which has no PyTorch meaning."""
-    assert UNPORTED == {}
+    """Prefetch and the host lane are ported: the option runs; what still
+    raises is the reference's in-graph host backend, which has no PyTorch
+    meaning."""
     EngineConfig(cache=CacheConfig(num_indexes=1, num_ways=2), **{name: True})
     with pytest.raises(NotImplementedError, match="host_backend"):
         EngineConfig(cache=CacheConfig(num_indexes=1, num_ways=2),
